@@ -1,0 +1,80 @@
+"""Torch-evaluable adapters of the synthetic benchmarks for lock-step
+campaigns (the counterpart of ``scamlgp_tpu/benchmarking/jax_adapters.py``).
+
+Bridges the host-side ``Benchmark`` objects (tasks, meta-data, optimum) to
+batched torch functions over the unit cube.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from scamlgp_tpu_torch.benchmarking.functions.branin import branin
+from scamlgp_tpu_torch.config import resolve_device
+from scamlgp_tpu_torch.models import scamlgp as m
+
+
+def branin_unit(x_unit, p):
+    """x_unit (..., 2) in [0,1]^2 -> Branin over x1 in [-5,10], x2 in
+    [0,15]; p holds (...,) task parameters."""
+    x1 = -5.0 + 15.0 * x_unit[..., 0]
+    x2 = 15.0 * x_unit[..., 1]
+    return branin(x1, x2, p["a"], p["b"], p["c"], p["r"], p["s"], p["t"])
+
+
+TORCH_FUNCTIONS = {
+    "Branin": branin_unit,
+}
+
+
+def _task_param_dict(task) -> Dict[str, float]:
+    return {**task.descriptors, **task.settings, **task.context}
+
+
+def campaign_inputs_from_benchmark(benchmark_cls, n_data_per_task,
+                                   study_seeds, noise_std: float,
+                                   meta_distribution: str = "random",
+                                   dtype=torch.float64, device=None,
+                                   optimum_method: str = "shgo"):
+    """Build (benchmark_fn, task_params, meta TaskData, optima) for a batch
+    of seeded studies of a synthetic benchmark.
+
+    Per study seed: instantiate the benchmark with the seed, generate noisy
+    meta-data, and record the noise-free optimum (host-side scipy SHGO) for
+    regret.  ``task_params`` is a dict of (S,) tensors; ``meta_data`` has
+    leading (S, M) axes.
+    """
+    if optimum_method != "shgo":
+        raise NotImplementedError(
+            f"optimum_method={optimum_method!r}: only 'shgo' is ported")
+    device = resolve_device(device)
+    fn = TORCH_FUNCTIONS[benchmark_cls.__name__]
+
+    task_param_list, task_data_list, optima = [], [], []
+    for seed in study_seeds:
+        b = benchmark_cls(n_data_per_task=list(n_data_per_task), seed=seed)
+        rng = np.random.default_rng(seed)
+        xs, ys = [], []
+        md = b.get_meta_data(meta_distribution, seed=seed)
+        for uid in sorted(md.keys(), key=str):
+            evals = md[uid]
+            X = np.stack([b.search_space.to_numerical(e.configuration)
+                          for e in evals])
+            y = np.asarray([e.objectives["loss"] for e in evals])
+            y = y + noise_std * rng.standard_normal(y.shape)
+            xs.append(X)
+            ys.append(y)
+        task_data_list.append(m.pack_task_data(xs, ys, dtype=dtype,
+                                               device=device))
+        task_param_list.append(_task_param_dict(b.target_task))
+        optima.append(float(b.optimum))
+
+    task_params = {k: torch.tensor([tp[k] for tp in task_param_list],
+                                   dtype=dtype, device=device)
+                   for k in task_param_list[0]}
+    meta_data = m.TaskData(*[torch.stack(ls) for ls in zip(*task_data_list)])
+    return (fn, task_params, meta_data,
+            torch.tensor(optima, dtype=dtype, device=device))

@@ -1,0 +1,68 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so`` at the
+root of the checkout (a directory git ignores), then loaded with ``ctypes``.
+The hash covers the source and the flags, so an edited source is rebuilt.
+Nothing is built or loaded when this module is imported: ``load`` builds at
+first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under CUDA_HOME")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is built already."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library of ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(build(name)))

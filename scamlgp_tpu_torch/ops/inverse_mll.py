@@ -1,0 +1,86 @@
+"""Gaussian MLL with an analytic matrix-level gradient over an explicit
+inverse (``scamlgp_tpu/ops/inverse_mll.py:65-111``).
+
+For mll(A, y) = -1/2 (y^T A^{-1} y + log|A| + n log 2pi) the gradients are
+
+    d mll / dA = 1/2 (alpha alpha^T - A^{-1}),     alpha = A^{-1} y
+    d mll / dy = -alpha
+
+so once the forward pass has A^{-1} (which the sweep kernel produces), the
+backward pass is one outer product: no triangular solves.
+
+Forward routing, as in the reference: the sweep (N <= 128), then the
+blocked-Cholesky kernel (routed off in the reference and not ported yet),
+then the Cholesky inverse.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from scamlgp_tpu_torch.ops import sweep
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def blocked_profitable(N: int, itemsize: int = 4) -> bool:
+    """The reference routes its blocked-Cholesky kernel off
+    (``pallas_blocked_chol.py:74``, ``_ROUTE_BLOCKED = False``)."""
+    return False
+
+
+def inverse_mll_profitable(N: int, itemsize: int = 4) -> bool:
+    """Whether an inverse kernel serves this N (else callers use the
+    Cholesky MLL, ``linalg.mll``)."""
+    return (sweep.sweep_profitable(N)
+            or blocked_profitable(N, itemsize))
+
+
+def _inverse_auto(A: torch.Tensor):
+    """(A^{-1}, log|A|) of a (B, N, N) batch through the applicable route."""
+    N = A.shape[-1]
+    if sweep.sweep_profitable(N):
+        return sweep.sweep_inverse(A.contiguous())
+    return sweep.chol_inverse(A)
+
+
+class MllViaInverse(torch.autograd.Function):
+    """Batched Gaussian log-density with the analytic backward pass."""
+
+    @staticmethod
+    def forward(ctx, A, y, n_active):
+        batch = A.shape[:-2]
+        N = A.shape[-1]
+        Ainv, logdet = _inverse_auto(A.reshape(-1, N, N))
+        Ainv = Ainv.reshape(batch + (N, N))
+        logdet = logdet.reshape(batch)
+        alpha = torch.sum(Ainv * y[..., None, :], dim=-1)
+        quad = torch.sum(y * alpha, dim=-1)
+        value = -0.5 * (quad + logdet + n_active * _LOG_2PI)
+        ctx.save_for_backward(Ainv, alpha)
+        ctx.n_active_shape = n_active.shape
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        Ainv, alpha = ctx.saved_tensors
+        dA = dy = dn = None
+        if ctx.needs_input_grad[0]:
+            outer = alpha[..., :, None] * alpha[..., None, :]
+            dA = (0.5 * g)[..., None, None] * (outer - Ainv)
+        if ctx.needs_input_grad[1]:
+            dy = -g[..., None] * alpha
+        if ctx.needs_input_grad[2]:
+            # the cotangent takes n_active's own shape, scalar included
+            dn = (-0.5 * _LOG_2PI * g).sum_to_size(ctx.n_active_shape)
+        return dA, dy, dn
+
+
+def mll_via_inverse(A: torch.Tensor, y: torch.Tensor,
+                    n_active: torch.Tensor) -> torch.Tensor:
+    """A: (..., n, n) masked SPD system (``linalg.mask_system``); y: (..., n)
+    centered targets, zero on padded rows; n_active: (...,) or scalar
+    active-row count.  Returns (...,)."""
+    return MllViaInverse.apply(A, y, n_active)

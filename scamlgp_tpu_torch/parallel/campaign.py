@@ -1,0 +1,310 @@
+"""Lock-step BO campaigns: studies as a batch axis
+(``scamlgp_tpu/parallel/campaign.py``, MAP mode).
+
+One call runs S studies of a synthetic benchmark side by side: the meta-fit
+of all S x M source GPs as one batch, then per iteration the target MAP fits
+of all S studies x restarts as one batched L-BFGS, the UCB acquisition
+ascent of all S studies x starts as one batched Adam, and the benchmark
+evaluation.  The host loops over iterations only.
+
+With ``mll_method="sweep"`` every fit objective with N <= 128 goes through
+the hand-written sweep kernel (``ops/sweep.py``) with the analytic gradient
+of ``ops/inverse_mll.py``.
+
+Randomness comes from one ``torch.Generator`` on the host, seeded with an
+integer; its draws move to the device.  ``iteration_draws`` makes one
+iteration's draws and ``run_iteration`` takes them as arguments, so tests
+can hand the JAX package and the port the same draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from scamlgp_tpu_torch.bo.acquisition import UpperConfidenceBound
+from scamlgp_tpu_torch.bo.optimize import ascend, top_starts
+from scamlgp_tpu_torch.config import resolve_device
+from scamlgp_tpu_torch.models import fit as fit_lib
+from scamlgp_tpu_torch.models import gp
+from scamlgp_tpu_torch.models import scamlgp as m
+from scamlgp_tpu_torch.ops import sweep
+from scamlgp_tpu_torch.utils.standardize import fit_standardize
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignConfig:
+    n_evaluations: int = 40
+    noise_std: float = 1.0
+    ucb_beta: float = 9.0                  # utils.py:215-224
+    fit_method: str = "map"                # only "map" is ported
+    fit_steps: int = 60                    # L-BFGS iterations per restart
+    fit_restarts: int = 5                  # prior-sampled, on top of warm
+    acq_raw_samples: int = 256
+    acq_topk: int = 4
+    acq_steps: int = 30
+    acq_lr: float = 0.05
+    mll_method: str = "chol"               # "chol" | "sweep"
+    pruning_threshold: float = 1e-3        # model.py:226
+    # fields of the posterior-marginalized fits, not ported yet
+    hmc_chains: int = 2
+    hmc_warmup: int = 64
+    hmc_samples: int = 16
+    hmc_leapfrog: int = 12
+    hmc_max_depth: int = 6
+    mixture_samples: int = 8
+    vi_steps: int = 200
+    vi_mc: int = 8
+    vi_lr: float = 0.05
+
+
+class CampaignResult(NamedTuple):
+    X: torch.Tensor        # (S, E, d) proposed unit-cube configs
+    y: torch.Tensor        # (S, E) noisy observed losses
+    y_clean: torch.Tensor  # (S, E) noise-free losses
+    meta_fit_seconds: float
+    iteration_seconds: list  # host clock per BO iteration, device synced
+    sweep_launches: list     # sweep-kernel launches: meta-fit, then each
+    #                          iteration (all 0 where no CUDA tensor ran)
+
+
+class IterationDraws(NamedTuple):
+    """The random inputs of one lock-step iteration."""
+
+    restarts: m.TargetParams   # (S, fit_restarts, ...) prior draws
+    raw: torch.Tensor          # (S, acq_raw_samples, d) uniform candidates
+    noise: torch.Tensor        # (S,) standard normal observation noise
+
+
+def iteration_draws(generator: torch.Generator, cfg: CampaignConfig,
+                    target_cfg: gp.GPConfig, S: int, M: int, d: int,
+                    dtype, device) -> IterationDraws:
+    restarts = m.sample_target_params(target_cfg, generator, M, d, dtype,
+                                      batch_shape=(S, cfg.fit_restarts))
+    raw = torch.rand((S, cfg.acq_raw_samples, d), generator=generator,
+                     dtype=dtype, device=generator.device)
+    noise = torch.randn((S,), generator=generator, dtype=dtype,
+                        device=generator.device)
+    return IterationDraws(
+        restarts=fit_lib.tree_map(lambda leaf: leaf.to(device), restarts),
+        raw=raw.to(device), noise=noise.to(device))
+
+
+def _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf, ybuf, mask,
+                     out_mean, out_std, pruning_threshold):
+    """Candidate-independent acquisition cache, batched over studies — see
+    ``models.scamlgp.acq_state_from_parts``."""
+    return m.acq_state_from_parts(stack, source_cfg, target_cfg, params,
+                                  Xbuf, ybuf, mask, out_mean, out_std,
+                                  pruning_threshold)
+
+
+def _study_posterior_diag_fast(stack, source_cfg, target_cfg, acq_state,
+                               Xbuf, Xq):
+    """Marginal posterior at candidates Xq (S, Q, d) via the cached state."""
+    return m.posterior_diag_from_state(stack, source_cfg, target_cfg,
+                                       acq_state, Xbuf, Xq)
+
+
+def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
+                out_mean, out_std, restarts: m.TargetParams,
+                cfg: CampaignConfig) -> m.TargetParams:
+    """Warm + prior-restart L-BFGS MAP fit of the target parameters of every
+    study (training-mode cached source moments).  ``restarts`` carries the
+    prior draws with leading (..., fit_restarts) axes."""
+    means, covs = m.source_predict(stack, source_cfg, Xbuf, full_cov=True)
+    om, os_ = out_mean[..., None], out_std[..., None]
+    y_std = (ybuf - om) / os_ * mask
+    batch_ndim = out_mean.ndim
+    # one axis for the restarts, in front of the data's last axes
+    Xr, yr, maskr = Xbuf.unsqueeze(-3), y_std.unsqueeze(-2), mask.unsqueeze(-2)
+    omr, osr = om[..., None], os_[..., None]
+
+    def objective(p):
+        w = m.weights_forward(p.raw_weights)                    # (..., R, M)
+        mean_p = (torch.einsum("...mq,...rm->...rq", means, w) - omr) / osr
+        cov_p = torch.einsum("...mqp,...rm->...rqp", covs, w ** 2) / (
+            osr[..., None] ** 2)
+        extra = torch.sum(m.WEIGHTS_PRIOR.log_prob(w), dim=-1)
+        return gp.map_objective(target_cfg, p.gp, Xr, yr, mask=maskr,
+                                prior_mean=mean_p, prior_cov=cov_p,
+                                extra_log_prior=extra,
+                                method=cfg.mll_method)
+
+    stack0 = fit_lib.stack_restarts(params_warm, restarts, batch_ndim)
+    return fit_lib.fit_map_restarts(objective, stack0, num_steps=cfg.fit_steps,
+                                    batch_ndim=batch_ndim).params
+
+
+def _out_transform(stack, ybuf, mask):
+    """Global Standardize over concat(meta, target) per study, with the
+    empty-target identity rule (model.py:261-276,307-308)."""
+    d = stack.data
+    meta_y = d.y * d.std[..., None] + d.mean[..., None]
+    lead = meta_y.shape[:-2]
+    all_y = torch.cat([meta_y.reshape(lead + (-1,)), ybuf], dim=-1)
+    all_m = torch.cat([d.mask.reshape(lead + (-1,)), mask], dim=-1)
+    tr = fit_standardize(all_y, all_m, dim=-1)
+    has_target = torch.sum(mask, dim=-1) > 0
+    out_mean = torch.where(has_target, tr.mean, torch.zeros_like(tr.mean))
+    out_std = torch.where(has_target, tr.std, torch.ones_like(tr.std))
+    return out_mean, out_std
+
+
+def _propose(stack, source_cfg, target_cfg, state, Xbuf, raw,
+             cfg: CampaignConfig) -> torch.Tensor:
+    """UCB(beta, minimize) ascent over the unit cube for every study: the
+    raw sweep picks the top-k starts, then Adam ascends from each."""
+    ucb = UpperConfidenceBound(beta=cfg.ucb_beta)
+
+    def acq(x):
+        mu, var = _study_posterior_diag_fast(stack, source_cfg, target_cfg,
+                                             state, Xbuf, x)
+        return ucb(mu, var)
+
+    starts = top_starts(acq, raw, cfg.acq_topk)
+    zs, negv = ascend(lambda x: -acq(x), starts, cfg.acq_steps, cfg.acq_lr)
+    best = torch.argmin(torch.where(torch.isfinite(negv), negv, torch.inf),
+                        dim=-1)
+    z = torch.gather(zs, -2, best[..., None, None].expand(
+        best.shape + (1, zs.shape[-1]))).squeeze(-2)
+    return torch.sigmoid(z)
+
+
+def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
+                  Xbuf, ybuf, yclean, mask, params: m.TargetParams,
+                  draws: IterationDraws, i: int, source_cfg: gp.GPConfig,
+                  target_cfg: gp.GPConfig, cfg: CampaignConfig):
+    """One lock-step BO iteration of every study: refit, propose, evaluate.
+    Returns the updated (Xbuf, ybuf, yclean, mask, params)."""
+    S, M = stack.data.X.shape[:2]
+    dtype = Xbuf.dtype
+    out_mean, out_std = _out_transform(stack, ybuf, mask)
+    warm = m.TargetParams(
+        raw_weights=m.weights_inverse(torch.full(
+            (S, M), 1.0 / M, dtype=dtype, device=Xbuf.device)),
+        gp=params.gp)
+    params = _fit_target(stack, source_cfg, target_cfg, warm, Xbuf, ybuf,
+                         mask, out_mean, out_std, draws.restarts, cfg)
+    state = _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf,
+                             ybuf, mask, out_mean, out_std,
+                             cfg.pruning_threshold)
+    x_star = _propose(stack, source_cfg, target_cfg, state, Xbuf, draws.raw,
+                      cfg)
+    y_clean = benchmark_fn(x_star, task_params).to(dtype)
+    y_noisy = y_clean + cfg.noise_std * draws.noise
+    Xbuf, ybuf, yclean, mask = (t.clone() for t in (Xbuf, ybuf, yclean, mask))
+    Xbuf[:, i] = x_star
+    ybuf[:, i] = y_noisy
+    yclean[:, i] = y_clean
+    mask[:, i] = 1.0
+    return Xbuf, ybuf, yclean, mask, params
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
+                 seed: int = 0, source_cfg: Optional[gp.GPConfig] = None,
+                 target_cfg: Optional[gp.GPConfig] = None,
+                 cfg: CampaignConfig = CampaignConfig(),
+                 meta_fit_restarts: int = 3, meta_fit_steps: int = 50,
+                 meta_fit_chunks: int = 1, loop: str = "host", mesh=None,
+                 checkpoint_path=None, device=None) -> CampaignResult:
+    """Run S studies in lock-step.
+
+    Args:
+        benchmark_fn: ``(x_unit (S, d), task_params) -> (S,)`` noise-free
+            loss.
+        task_params: dict of (S,) per-study target-task parameters.
+        meta_data: TaskData with leading axes (S, M, N) — per-study meta
+            observations, already noisy if desired.
+        seed: seeds the host generator of every random draw.
+        meta_fit_chunks: split the (S*M)-task meta-fit into this many equal
+            sequential batches (must divide S).  The draws are made for all
+            tasks first, so the result does not depend on the split.
+        device: where the campaign runs; ``cuda`` when left out.
+    """
+    if cfg.fit_method != "map":
+        raise NotImplementedError(
+            f"fit_method={cfg.fit_method!r}: only 'map' is ported")
+    if loop != "host":
+        raise NotImplementedError(f"loop={loop!r}: only 'host' is ported")
+    if mesh is not None:
+        raise NotImplementedError("study sharding over a mesh is not ported")
+    if checkpoint_path is not None:
+        raise NotImplementedError("checkpoint/resume is not ported")
+    device = resolve_device(device)
+    source_cfg = source_cfg or gp.source_gp_config()
+    target_cfg = target_cfg or gp.target_gp_config()
+    meta_data = m.TaskData(*[leaf.to(device) for leaf in meta_data])
+    task_params = {k: v.to(device) for k, v in task_params.items()}
+    S, M, N, d = meta_data.X.shape
+    dtype = meta_data.X.dtype
+    E = cfg.n_evaluations
+    T = S * M
+    if S % meta_fit_chunks:
+        raise ValueError(f"meta_fit_chunks={meta_fit_chunks} does not "
+                         f"divide S={S}")
+    generator = torch.Generator(device="cpu").manual_seed(seed)
+
+    # ---- meta-fit: (study, task) folded into one task axis ----------------
+    t0 = time.perf_counter()
+    counts = [sweep.sweep_inverse.launches]
+    flat = m.TaskData(*[leaf.reshape((T,) + leaf.shape[2:])
+                        for leaf in meta_data])
+    warm = gp.init_params(source_cfg, d, dtype, device, batch_shape=(T,))
+    sampled = gp.sample_params(source_cfg, generator, d, dtype,
+                               batch_shape=(T, meta_fit_restarts))
+    init_stack = fit_lib.stack_restarts(
+        warm, fit_lib.tree_map(lambda leaf: leaf.to(device), sampled), 1)
+    csz = T // meta_fit_chunks
+    parts = []
+    for c in range(meta_fit_chunks):
+        sl = slice(c * csz, (c + 1) * csz)
+        parts.append(m.meta_fit_task_stack(
+            m.TaskData(*[leaf[sl] for leaf in flat]), source_cfg,
+            num_steps=meta_fit_steps, mll_method=cfg.mll_method,
+            init_stack=fit_lib.tree_map(lambda leaf: leaf[sl], init_stack)))
+    flat_stack = fit_lib.tree_map(lambda *ls: torch.cat(ls), *parts)
+    stack = fit_lib.tree_map(lambda leaf: leaf.reshape((S, M) + leaf.shape[1:]),
+                             flat_stack)
+    _sync(device)
+    meta_fit_seconds = time.perf_counter() - t0
+    counts.append(sweep.sweep_inverse.launches)
+
+    # ---- BO loop ----------------------------------------------------------
+    Xbuf = torch.zeros((S, E, d), dtype=dtype, device=device)
+    ybuf = torch.zeros((S, E), dtype=dtype, device=device)
+    yclean = torch.zeros((S, E), dtype=dtype, device=device)
+    mask = torch.zeros((S, E), dtype=dtype, device=device)
+    params = m.init_target_params(target_cfg, M, d, dtype, device,
+                                  batch_shape=(S,))
+    iteration_seconds = []
+    for i in range(E):
+        t0 = time.perf_counter()
+        draws = iteration_draws(generator, cfg, target_cfg, S, M, d, dtype,
+                                device)
+        Xbuf, ybuf, yclean, mask, params = run_iteration(
+            benchmark_fn, stack, task_params, Xbuf, ybuf, yclean, mask,
+            params, draws, i, source_cfg, target_cfg, cfg)
+        _sync(device)
+        iteration_seconds.append(time.perf_counter() - t0)
+        counts.append(sweep.sweep_inverse.launches)
+    return CampaignResult(X=Xbuf, y=ybuf, y_clean=yclean,
+                          meta_fit_seconds=meta_fit_seconds,
+                          iteration_seconds=iteration_seconds,
+                          sweep_launches=[b - a for a, b in
+                                          zip(counts, counts[1:])])
+
+
+def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:
+    """Running-min simple regret per study (plotting.py:21-53 semantics)."""
+    regret = y_clean - torch.as_tensor(optimum, dtype=y_clean.dtype,
+                                       device=y_clean.device)[..., None]
+    return torch.cummin(regret, dim=-1).values

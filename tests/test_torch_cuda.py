@@ -1,0 +1,99 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version, and the campaign on the card against the campaign on the CPU.
+
+These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
+imports neither JAX nor the JAX package, so it also runs where those are
+not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scamlgp_tpu_torch.benchmarking.benchmarks import Branin
+from scamlgp_tpu_torch.benchmarking.torch_adapters import (
+    campaign_inputs_from_benchmark,
+)
+from scamlgp_tpu_torch.ops import inverse_mll, sweep
+from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _spd_batch(rng, b, n, jitter=0.5):
+    X = rng.normal(size=(b, n, n)).astype(np.float32)
+    return np.einsum("bij,bkj->bik", X, X) / n + jitter * np.eye(
+        n, dtype=np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 8, 10, 32, 40, 128])
+def test_sweep_kernel_matches_plain(cuda, n, dtype):
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 64, n),
+                        dtype=dtype, device=cuda)
+    before = sweep.sweep_inverse.launches
+    inv_k, ld_k = sweep.sweep_inverse(A)
+    torch.cuda.synchronize()
+    assert sweep.sweep_inverse.launches == before + 1
+    inv_p, ld_p = sweep.sweep_inverse_reference(A)
+    tol_inv, tol_ld = ((1e-4, 1e-5) if dtype == torch.float32
+                       else (1e-11, 1e-12))
+    assert (inv_k - inv_p).abs().max().item() <= tol_inv * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= tol_ld
+
+
+def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        sweep.sweep_inverse(torch.eye(130, device=cuda).expand(2, 130, 130)
+                            .contiguous())
+    with pytest.raises(TypeError):
+        sweep.sweep_inverse(torch.eye(4, device=cuda,
+                                      dtype=torch.float16)[None])
+    with pytest.raises(ValueError):
+        sweep.sweep_inverse(torch.eye(4, device=cuda)[None].transpose(1, 2)
+                            .expand(2, 4, 4))
+
+
+def test_mll_via_inverse_gradient_on_the_card(cuda):
+    rng = np.random.default_rng(1)
+    A = torch.as_tensor(_spd_batch(rng, 8, 24), dtype=torch.float64)
+    y = torch.as_tensor(rng.normal(size=(8, 24)))
+    na = torch.full((8,), 24.0, dtype=torch.float64)
+    out = []
+    for dev in ("cpu", cuda):
+        Ad = A.to(dev).requires_grad_(True)
+        yd = y.to(dev).requires_grad_(True)
+        v = inverse_mll.mll_via_inverse(Ad, yd, na.to(dev)).sum()
+        out.append([t.cpu() for t in (v, *torch.autograd.grad(v, (Ad, yd)))])
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-11)
+
+
+def test_campaign_on_the_card_matches_the_cpu(cuda):
+    """A tiny float64 campaign proposes the same points through the kernel
+    on the card as through the plain sweep on the CPU."""
+    fn, tp, md, _ = campaign_inputs_from_benchmark(
+        Branin, [8] * 2, range(2), noise_std=1.0, dtype=torch.float64,
+        device="cpu")
+    cfg = CampaignConfig(n_evaluations=2, mll_method="sweep", fit_steps=10,
+                         acq_raw_samples=32, acq_topk=3, acq_steps=8)
+    xs = []
+    for dev in ("cpu", cuda):
+        sweep.sweep_inverse.launches = 0
+        res = run_campaign(fn, tp, md, seed=0, cfg=cfg, meta_fit_restarts=2,
+                           meta_fit_steps=12, device=dev)
+        xs.append(res.X.cpu())
+    assert sweep.sweep_inverse.launches == sum(res.sweep_launches) > 0
+    assert len(res.sweep_launches) == 3
+    torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)

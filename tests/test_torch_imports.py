@@ -1,0 +1,85 @@
+"""The port needs only torch, numpy and scipy, and nothing of JAX.
+
+Every module of ``scamlgp_tpu_torch`` and ``chip_smoke`` (as a module, its
+``main`` not run) is imported in a fresh interpreter in which a
+``sys.meta_path`` finder refuses JAX, optax, the JAX package, pandas,
+matplotlib, h5py and triton: a GPU host set up for the port need not have
+them.  Where they are installed those imports would succeed, so only the
+finder can show that the port does not need them.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "optax", "scamlgp_tpu", "pandas", "matplotlib",
+           "h5py", "triton")
+
+SCRIPT = textwrap.dedent(f"""
+    import importlib, pkgutil, sys
+
+    BLOCKED = {BLOCKED!r}
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"refused: {{name}}", name=name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import scamlgp_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        scamlgp_tpu_torch.__path__, "scamlgp_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("imported", len(names) + 2)
+""")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    return env
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    n = int(out.stdout.split()[-1])
+    assert n >= 30
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Where torch sees no CUDA device the script exits non-zero with the
+    device message and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the repo
+    the script fails and prints no result line."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
