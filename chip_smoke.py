@@ -6,16 +6,27 @@
 Phases, each printing one JSON line with its own seconds:
 
 1. device: the card, and its name and power limit from nvidia-smi;
-2. build: nvcc builds the kernel of ``scamlgp_tpu_torch/csrc`` into
-   ``build/torch_kernels``;
-3. kernel: the kernel's wrapper against its plain PyTorch version on the
+2. build: nvcc builds every kernel source of ``scamlgp_tpu_torch/csrc``
+   into ``build/torch_kernels``, one nvcc per source, all started together;
+3. kernel: each kernel's wrapper against its plain PyTorch version on the
    card, on the fixture's shapes and on the campaign's, then timed at the
    campaign's shapes beside the plain version, one PyTorch library call
-   computing the same function, and the roofline bound;
-4. slice: the Branin T8 MAP campaign (8 meta-tasks x 32 points, d=2,
-   noise 1.0, CampaignConfig defaults with mll_method="sweep", float32)
-   through ``run_campaign``, with the launch counts of every kernel taken
-   over that run alone;
+   computing the same function, and the roofline bound.  Kernels: the sweep
+   inverse, and the blocked-Cholesky inverse in its two variants, ``smem``
+   and ``global``;
+4. slices, each through ``run_campaign`` in float32 with
+   ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
+   counts of every kernel set to 0 just before and read just after:
+
+   - Branin T8 (8 meta-tasks x 32 points, d=2, noise 1.0): the sweep kernel
+     in the meta-fit and the target fits;
+   - Branin T8 N_m=256 (noise 1.0, ``route_blocked=True``): the meta-fit's
+     (1024, 256, 256) systems through the ``smem`` blocked kernel;
+   - Hartmann6D T8 N_m=512 (d=6, noise 0.1, ``route_blocked=True``): the
+     meta-fit's (256, 512, 512) systems through the ``global`` blocked
+     kernel;
+
+   each cut in studies and evaluations only;
 5. the card's nvidia-smi line, the kernels line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -31,21 +42,40 @@ import time
 import numpy as np
 import torch
 
-from scamlgp_tpu_torch.benchmarking.benchmarks import Branin
+from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
 from scamlgp_tpu_torch.models import gp
-from scamlgp_tpu_torch.ops import cuda_build, inverse_mll, linalg, sweep
+from scamlgp_tpu_torch.ops import (
+    blocked_chol,
+    cuda_build,
+    inverse_mll,
+    linalg,
+    sweep,
+)
 from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
     run_campaign,
     simple_regret,
 )
 
-# Slice size: S studies x E evaluations of Branin T8 (the model's width,
-# M=8 tasks x N=32 points and the CampaignConfig defaults, is not cut).
-STUDIES, EVALS, TASKS, POINTS = 32, 10, 8, 32
+# Slices: S studies x E evaluations of each configuration (the model's
+# width, M=8 tasks x N_m points, d, the noise and the CampaignConfig
+# defaults, is not cut).
+SLICES = {
+    "branin_t8_p32": dict(benchmark=Branin, studies=32, evals=10, tasks=8,
+                          points=32, sigma=1.0, route_blocked=False,
+                          optimum="shgo", kernels=("sweep_inverse",)),
+    "branin_t8_p256": dict(benchmark=Branin, studies=32, evals=3, tasks=8,
+                           points=256, sigma=1.0, route_blocked=True,
+                           optimum="shgo",
+                           kernels=("blocked_chol_inverse_smem",)),
+    "hartmann6_t8_p512": dict(benchmark=Hartmann6D, studies=8, evals=2,
+                              tasks=8, points=512, sigma=0.1,
+                              route_blocked=True, optimum="device",
+                              kernels=("blocked_chol_inverse_global",)),
+}
 META_RESTARTS, META_STEPS = 3, 50
 
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
@@ -97,6 +127,12 @@ def library_inverse(A):
 
 
 def bound(B, N, dtype):
+    """Least time for (A^{-1}, log|A|) of B SPD matrices N x N: one read of A
+    and one write of the outputs at the HBM rate, against the N^3 operations
+    that the function needs at the least (a Cholesky, a triangular inverse
+    and W^T W at N^3 / 3 each, as LAPACK's potrf + potri), at the peak rate
+    of the type.  The same count holds for every kernel of the function,
+    whatever its own scheme does (the sweep does 2 N^3)."""
     itemsize = torch.finfo(dtype).bits // 8
     t_bytes = (2 * B * N * N + B) * itemsize / HBM_BYTES_PER_S
     t_ops = B * N ** 3 / PEAK_OPS[dtype]
@@ -126,102 +162,178 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    cold = not cuda_build.library_path("sweep_inverse").exists()
-    cuda_build.load("sweep_inverse")
-    emit("build", time.perf_counter() - t0, source="sweep_inverse",
+    cold = [n for n in cuda_build.SOURCES
+            if not cuda_build.library_path(n).exists()]
+    cuda_build.build_all()
+    for name in cuda_build.SOURCES:
+        cuda_build.load(name)
+    emit("build", time.perf_counter() - t0, sources=list(cuda_build.SOURCES),
          built_cold=cold)
 
 
-def check_sweep(A, n, what):
-    """The kernel against the plain sweep on the same A, within the stated
-    tolerances; returns the inverse's largest absolute error."""
-    dtype = A.dtype
-    inv_k, ld_k = sweep.sweep_inverse(A)
+def blocked(variant):
+    return lambda A: blocked_chol.blocked_chol_inverse(A, variant)
+
+
+# name -> (kernel wrapper, plain version)
+KERNELS = {
+    "sweep_inverse": (sweep.sweep_inverse, sweep.sweep_inverse_reference),
+    "blocked_chol_inverse_smem": (
+        blocked("smem"), blocked_chol.blocked_chol_inverse_reference),
+    "blocked_chol_inverse_global": (
+        blocked("global"), blocked_chol.blocked_chol_inverse_reference),
+}
+
+
+def check_kernel(name, A, what):
+    """The kernel against its plain version on the same A, within the
+    stated tolerances; returns the inverse's largest absolute error."""
+    kernel, plain = KERNELS[name]
+    dtype, n = A.dtype, A.shape[-1]
+    inv_k, ld_k = kernel(A)
     torch.cuda.synchronize()
-    inv_p, ld_p = sweep.sweep_inverse_reference(A)
+    inv_p, ld_p = plain(A)
     err = (inv_k - inv_p).abs().max().item()
     scale = inv_p.abs().max().item()
     ld_err = ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item()
-    emit("kernel_check", None, kernel="sweep_inverse", shapes=what, n=n,
+    emit("kernel_check", None, kernel=name, shapes=what, n=n,
          batch=A.shape[0], dtype=str(dtype), max_abs_err=err,
          max_abs_inv=scale, logdet_rel_err=ld_err)
     check(err <= TOL_INV[dtype] * scale,
-          f"sweep inverse {what} n={n} {dtype}: {err} > "
+          f"{name} inverse {what} n={n} {dtype}: {err} > "
           f"{TOL_INV[dtype]} * {scale}")
     check(ld_err <= TOL_LOGDET[dtype],
-          f"sweep logdet {what} n={n} {dtype}: {ld_err}")
+          f"{name} logdet {what} n={n} {dtype}: {ld_err}")
     return err
 
 
+def time_kernel(name, A, reps, plain_reps):
+    kernel, plain = KERNELS[name]
+    B, N, _ = A.shape
+    bound_ms, bound_by = bound(B, N, A.dtype)
+    return dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
+                plain_ms=time_ms(lambda: plain(A), plain_reps),
+                library_ms=time_ms(lambda: library_inverse(A), 10),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel():
-    """Sweep kernel against the plain sweep; then times at the campaign's
-    shapes.  Returns the kernels-line fields measured here."""
+    """Every kernel against its plain version on the fixture's shapes and at
+    the campaign's; then times at the campaign's shapes.  Returns, per
+    kernel, the largest f32 error and the timings at its head shape."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    max_err = 0.0
+    max_err = dict.fromkeys(KERNELS, 0.0)
+
+    def fixture(b, n, dtype):
+        return torch.as_tensor(spd_batch(rng, b, n), dtype=dtype,
+                               device="cuda")
+
     for dtype in (torch.float32, torch.float64):
         for n in (8, 32, 40, 128):
-            A = torch.as_tensor(spd_batch(rng, 256, n), dtype=dtype,
-                                device="cuda")
-            err = check_sweep(A, n, "fixture")
+            err = check_kernel("sweep_inverse", fixture(256, n, dtype),
+                               "fixture")
             if dtype == torch.float32:
-                max_err = max(max_err, err)
+                max_err["sweep_inverse"] = max(max_err["sweep_inverse"], err)
+        for n in (64, 88, 192, 256, 512, 1024):
+            A = fixture(64 if n <= 256 else 16, n, dtype)
+            for variant in blocked_chol.VARIANTS:
+                if (variant == "smem" and blocked_chol.smem_bytes(
+                        n, A.element_size()) > blocked_chol.SMEM_LIMIT):
+                    continue
+                name = f"blocked_chol_inverse_{variant}"
+                err = check_kernel(name, A, "fixture")
+                if dtype == torch.float32:
+                    max_err[name] = max(max_err[name], err)
 
     cfg = CampaignConfig()
-    shapes = {"meta_fit": (STUDIES * TASKS * (META_RESTARTS + 1), POINTS),
-              "target_fit": (STUDIES * (cfg.fit_restarts + 1), EVALS)}
+    p32, p256, p512 = (SLICES[k] for k in
+                       ("branin_t8_p32", "branin_t8_p256",
+                        "hartmann6_t8_p512"))
+
+    def meta_batch(sl):
+        return sl["studies"] * sl["tasks"] * (META_RESTARTS + 1)
+
+    # (kernel, what, B, N, launches timed, plain launches timed)
+    shapes = [
+        ("sweep_inverse", "meta_fit", meta_batch(p32), p32["points"], 200,
+         10),
+        ("sweep_inverse", "target_fit",
+         p32["studies"] * (cfg.fit_restarts + 1), p32["evals"], 200, 10),
+        ("blocked_chol_inverse_smem", "meta_fit", meta_batch(p256),
+         p256["points"], 20, 3),
+        ("blocked_chol_inverse_global", "meta_fit", meta_batch(p512),
+         p512["points"], 20, 3),
+        # the other variant at the smem shape: what the choice by bytes costs
+        ("blocked_chol_inverse_global", "smem_shape", meta_batch(p256),
+         p256["points"], 20, 3),
+    ]
     timed = {}
-    for what, (B, N) in shapes.items():
-        A = torch.as_tensor(spd_batch(rng, B, N), dtype=torch.float32,
-                            device="cuda")
-        max_err = max(max_err, check_sweep(A, N, what))
-        ms = time_ms(lambda: sweep.sweep_inverse(A), 200)
-        plain_ms = time_ms(lambda: sweep.sweep_inverse_reference(A), 10)
-        lib_ms = time_ms(lambda: library_inverse(A), 50)
-        bound_ms, bound_by = bound(B, N, torch.float32)
-        timed[what] = dict(batch=B, n=N, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-    emit("kernel", time.perf_counter() - t0, kernel="sweep_inverse",
-         dtype="float32", shapes=timed)
-    return max_err, timed
+    for name, what, B, N, reps, plain_reps in shapes:
+        A = fixture(B, N, torch.float32)
+        max_err[name] = max(max_err[name], check_kernel(name, A, what))
+        timed.setdefault(name, {})[what] = time_kernel(name, A, reps,
+                                                      plain_reps)
+        del A
+        torch.cuda.empty_cache()
+    emit("kernel", time.perf_counter() - t0, dtype="float32", shapes=timed)
+    return max_err, {k: v["meta_fit"] for k, v in timed.items()}
 
 
 def mll_plain(A, y, n_active):
-    """``inverse_mll.mll_via_inverse`` with the plain sweep in place of the
-    kernel."""
-    Ainv, logdet = sweep.sweep_inverse_reference(A)
+    """``inverse_mll.mll_via_inverse`` with the plain versions in place of
+    the kernels, routed as the port routes with ``route_blocked``."""
+    N = A.shape[-1]
+    if sweep.sweep_profitable(N):
+        Ainv, logdet = sweep.sweep_inverse_reference(A)
+    else:
+        Ainv, logdet = blocked_chol.blocked_chol_inverse_reference(A)
     quad = torch.sum(y * torch.sum(Ainv * y[:, None, :], -1), -1)
     return -0.5 * (quad + logdet + n_active * np.log(2 * np.pi))
 
 
-def phase_slice():
+def phase_slice(key):
+    """One slice's campaign; returns its launches of every kernel."""
+    sl = SLICES[key]
     t0 = time.perf_counter()
     fn, tp, md, optima = campaign_inputs_from_benchmark(
-        Branin, [POINTS] * TASKS, range(STUDIES), noise_std=1.0,
-        dtype=torch.float32, device="cuda")
+        sl["benchmark"], [sl["points"]] * sl["tasks"], range(sl["studies"]),
+        noise_std=sl["sigma"], dtype=torch.float32, device="cuda",
+        optimum_method=sl["optimum"])
     setup_s = time.perf_counter() - t0
-    cfg = CampaignConfig(n_evaluations=EVALS, noise_std=1.0,
-                         mll_method="sweep")
+    cfg = CampaignConfig(n_evaluations=sl["evals"], noise_std=sl["sigma"],
+                         mll_method="sweep",
+                         route_blocked=sl["route_blocked"])
+    S, M, N, d = md.X.shape
 
-    sweep.sweep_inverse.launches = 0
+    inverse_mll.reset_kernel_launches()
     res = run_campaign(fn, tp, md, seed=0, cfg=cfg,
                        meta_fit_restarts=META_RESTARTS,
                        meta_fit_steps=META_STEPS, device="cuda")
     torch.cuda.synchronize()
-    launches = sweep.sweep_inverse.launches
+    launches = inverse_mll.kernel_launches()
 
-    check(launches > 0, "the campaign launched the sweep kernel no time")
+    for name in sl["kernels"]:
+        check(res.launches[name][0] > 0,
+              f"{key}: the meta-fit launched {name} no time")
+    for name, counts in res.launches.items():
+        if name not in sl["kernels"]:
+            check(counts[0] == 0, f"{key}: the meta-fit launched {name}")
+    check(sum(res.launches["sweep_inverse"][1:]) > 0,
+          f"{key}: the target fits launched the sweep kernel no time")
+    check(sum(launches.values()) == sum(sum(c) for c in
+                                        res.launches.values()),
+          f"{key}: launch counts of the run and of the result differ")
     X = res.X
-    check(X.shape == (STUDIES, EVALS, 2), f"proposal shape {tuple(X.shape)}")
-    check(bool(torch.isfinite(X).all()), "non-finite proposal")
-    check(bool(((X >= 0) & (X <= 1)).all()), "proposal outside [0,1]^2")
+    check(X.shape == (S, sl["evals"], d), f"proposal shape {tuple(X.shape)}")
+    check(bool(torch.isfinite(X).all()), f"{key}: non-finite proposal")
+    check(bool(((X >= 0) & (X <= 1)).all()),
+          f"{key}: proposal outside the unit cube")
     regret = simple_regret(res.y_clean, optima)
-    check(bool(torch.isfinite(regret).all()), "non-finite regret")
+    check(bool(torch.isfinite(regret).all()), f"{key}: non-finite regret")
 
     # one batch of the campaign's own systems: the meta-fit's first
     # objective evaluation (every task at the warm start), kernel vs plain
-    S, M, N, d = md.X.shape
     flat_X, flat_y, flat_m = (t.reshape((S * M,) + t.shape[2:])
                               for t in (md.X, md.y, md.mask))
     scfg = gp.source_gp_config()
@@ -231,43 +343,72 @@ def phase_slice():
     y = flat_y * flat_m
     na = flat_m.sum(-1)
     plain = mll_plain(A, y, na)
-    diff = (inverse_mll.mll_via_inverse(A, y, na) - plain).abs()
+    kern = inverse_mll.mll_via_inverse(A, y, na, sl["route_blocked"])
+    diff = (kern - plain).abs()
+    # both f32 results against the plain version in f64 on the same systems
+    truth = mll_plain(A.double(), y.double(), na.double())
+
+    def rel_to_truth(v):
+        return ((v.double() - truth).abs()
+                / truth.abs().clamp_min(1.0)).max().item()
 
     per_iter = res.iteration_seconds
-    emit("slice", time.perf_counter() - t0, setup_s=setup_s,
+    emit("slice", time.perf_counter() - t0, slice=key,
+         benchmark=sl["benchmark"].__name__, tasks=M, points=N, d=d,
+         sigma=sl["sigma"], route_blocked=sl["route_blocked"],
+         studies=S, evaluations=sl["evals"], setup_s=setup_s,
          meta_fit_s=res.meta_fit_seconds, iteration_s=per_iter,
          mean_iteration_s=float(np.mean(per_iter)),
          median_final_regret=float(regret[:, -1].median()),
          median_regret=[float(v) for v in regret.median(dim=0).values],
-         sweep_launches=launches,
-         sweep_launches_meta_fit=res.sweep_launches[0],
-         sweep_launches_per_iteration=res.sweep_launches[1:],
-         studies=STUDIES, evaluations=EVALS,
+         launches=launches,
+         launches_meta_fit={k: v[0] for k, v in res.launches.items()},
+         launches_per_iteration={k: v[1:] for k, v in res.launches.items()},
          mll_kernel_vs_plain_max_abs=diff.max().item(),
          mll_kernel_vs_plain_max_rel=(diff / plain.abs().clamp_min(1.0))
-         .max().item())
+         .max().item(),
+         mll_kernel_vs_f64_max_rel=rel_to_truth(kern),
+         mll_plain_vs_f64_max_rel=rel_to_truth(plain))
     return launches
+
+
+REPLACES = {
+    "sweep_inverse": ("scamlgp_tpu_torch/csrc/sweep_inverse.cu",
+                      "scamlgp_tpu/ops/pallas_sweep.py:96"),
+    "blocked_chol_inverse_smem": (
+        "scamlgp_tpu_torch/csrc/blocked_chol_inverse.cu",
+        "scamlgp_tpu/ops/pallas_blocked_chol.py:225"),
+    "blocked_chol_inverse_global": (
+        "scamlgp_tpu_torch/csrc/blocked_chol_inverse.cu",
+        "scamlgp_tpu/ops/pallas_blocked_chol.py:244"),
+}
 
 
 def main():
     card = phase_device()
     phase_build()
-    max_err, timed = phase_kernel()
-    launches = phase_slice()
-    head = timed["meta_fit"]
-    kernels = [{
-        "name": "sweep_inverse",
-        "route": "cuda",
-        "source": "scamlgp_tpu_torch/csrc/sweep_inverse.cu",
-        "replaces": "scamlgp_tpu/ops/pallas_sweep.py:96",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }]
+    max_err, head = phase_kernel()
+    by_slice = {key: phase_slice(key) for key in SLICES}
+    # each kernel's launches in the slice whose main path it carries
+    launches = {name: by_slice[key][name]
+                for key, sl in SLICES.items() for name in sl["kernels"]}
+    kernels = []
+    for name in KERNELS:
+        source, replaces = REPLACES[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "launches_by_slice": {key: n[name] for key, n in by_slice.items()},
+            "max_abs_err": max_err[name],
+            "ms": head[name]["ms"],
+            "plain_ms": head[name]["plain_ms"],
+            "bound_ms": head[name]["bound_ms"],
+            "bound_by": head[name]["bound_by"],
+            "library_ms": head[name]["library_ms"],
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 campaigns (the counterpart of ``scamlgp_tpu/benchmarking/jax_adapters.py``).
 
 Bridges the host-side ``Benchmark`` objects (tasks, meta-data, optimum) to
-batched torch functions over the unit cube.
+batched torch functions over the unit cube.  Each function maps points
+x_unit (..., d) and a dict of task parameters broadcastable to (...,) to
+(...,) losses.
 """
 
 from __future__ import annotations
@@ -13,6 +15,14 @@ import numpy as np
 import torch
 
 from scamlgp_tpu_torch.benchmarking.functions.branin import branin
+from scamlgp_tpu_torch.benchmarking.functions.hartmann import (
+    A3,
+    A6,
+    P3,
+    P6,
+    hartmann_function,
+)
+from scamlgp_tpu_torch.bo.optimize import ascend, top_starts
 from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import scamlgp as m
 
@@ -25,13 +35,48 @@ def branin_unit(x_unit, p):
     return branin(x1, x2, p["a"], p["b"], p["c"], p["r"], p["s"], p["t"])
 
 
+def _alpha(p):
+    return torch.stack([p["alpha1"], p["alpha2"], p["alpha3"], p["alpha4"]],
+                       dim=-1)
+
+
+def hartmann3_unit(x_unit, p):
+    """x_unit (..., 3) in [0,1]^3 -> Hartmann 3-D with weights alpha1..4."""
+    return hartmann_function(x_unit, _alpha(p), A3, P3)
+
+
+def hartmann6_unit(x_unit, p):
+    """x_unit (..., 6) in [0,1]^6 -> Hartmann 6-D with weights alpha1..4."""
+    return hartmann_function(x_unit, _alpha(p), A6, P6)
+
+
 TORCH_FUNCTIONS = {
     "Branin": branin_unit,
+    "Hartmann3D": hartmann3_unit,
+    "Hartmann6D": hartmann6_unit,
 }
 
 
 def _task_param_dict(task) -> Dict[str, float]:
     return {**task.descriptors, **task.settings, **task.context}
+
+
+def device_optima(fn, task_params, d: int, n_samples: int = 8192,
+                  topk: int = 32, steps: int = 200, lr: float = 0.02,
+                  seed: int = 0) -> torch.Tensor:
+    """Per-study minima of a benchmark function on the campaign's device
+    (``jax_adapters.device_optima``): uniform screening, then Adam on the
+    logit of the ``topk`` best points, keeping the best value seen.  The
+    screening points come from a host generator seeded with ``seed``, so
+    they are not the JAX package's points."""
+    first = next(iter(task_params.values()))
+    S, dtype, device = first.shape[0], first.dtype, first.device
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pts = torch.rand((S, n_samples, d), generator=gen, dtype=dtype)
+    tp = {k: v[:, None] for k, v in task_params.items()}
+    starts = top_starts(lambda x: -fn(x, tp), pts.to(device), topk)
+    _, best = ascend(lambda x: fn(x, tp), starts, steps, lr)
+    return best.min(dim=-1).values
 
 
 def campaign_inputs_from_benchmark(benchmark_cls, n_data_per_task,
@@ -46,10 +91,13 @@ def campaign_inputs_from_benchmark(benchmark_cls, n_data_per_task,
     meta-data, and record the noise-free optimum (host-side scipy SHGO) for
     regret.  ``task_params`` is a dict of (S,) tensors; ``meta_data`` has
     leading (S, M) axes.
+
+    ``optimum_method`` is ``"shgo"`` (the reference's host-side scipy SHGO
+    per study, tens of seconds per 6-D study) or ``"device"``
+    (``device_optima``).
     """
-    if optimum_method != "shgo":
-        raise NotImplementedError(
-            f"optimum_method={optimum_method!r}: only 'shgo' is ported")
+    if optimum_method not in ("shgo", "device"):
+        raise ValueError(f"unknown optimum_method: {optimum_method!r}")
     device = resolve_device(device)
     fn = TORCH_FUNCTIONS[benchmark_cls.__name__]
 
@@ -70,11 +118,15 @@ def campaign_inputs_from_benchmark(benchmark_cls, n_data_per_task,
         task_data_list.append(m.pack_task_data(xs, ys, dtype=dtype,
                                                device=device))
         task_param_list.append(_task_param_dict(b.target_task))
-        optima.append(float(b.optimum))
+        if optimum_method == "shgo":
+            optima.append(float(b.optimum))
 
     task_params = {k: torch.tensor([tp[k] for tp in task_param_list],
                                    dtype=dtype, device=device)
                    for k in task_param_list[0]}
     meta_data = m.TaskData(*[torch.stack(ls) for ls in zip(*task_data_list)])
-    return (fn, task_params, meta_data,
-            torch.tensor(optima, dtype=dtype, device=device))
+    if optimum_method == "device":
+        optima = device_optima(fn, task_params, meta_data.X.shape[-1])
+    else:
+        optima = torch.tensor(optima, dtype=dtype, device=device)
+    return fn, task_params, meta_data, optima

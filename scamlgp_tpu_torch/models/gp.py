@@ -132,15 +132,18 @@ def gram(cfg: GPConfig, c: Constrained, x, z=None):
 
 
 def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
-        prior_mean=None, prior_cov=None, method: str = "chol") -> torch.Tensor:
+        prior_mean=None, prior_cov=None, method: str = "chol",
+        route_blocked: bool = False) -> torch.Tensor:
     """Marginal log-likelihood log N(y | prior_mean, K + prior_cov + noise I).
 
     Methods:
 
     - ``"chol"``: Cholesky MLL with autograd (the parity path);
     - ``"sweep"``: the inverse route with the analytic gradient
-      (``ops/inverse_mll.py``), through the sweep kernel for N <= 128;
-      falls back to ``"chol"`` where no inverse route serves this N.
+      (``ops/inverse_mll.py``), through the sweep kernel for N <= 128 and,
+      with ``route_blocked``, the blocked-Cholesky kernel for
+      192 <= N <= 1024; falls back to ``"chol"`` where no inverse route
+      serves this N.
     """
     if method not in ("chol", "sweep"):
         raise ValueError(f"unknown mll method {method!r} (chol | sweep)")
@@ -149,7 +152,7 @@ def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
     if prior_cov is not None:
         K = K + prior_cov
     if method == "sweep" and inverse_mll.inverse_mll_profitable(
-            K.shape[-1], K.element_size()):
+            K.shape[-1], K.element_size(), route_blocked):
         yy = y if prior_mean is None else y - prior_mean
         if mask is not None:
             yy = yy * mask
@@ -160,16 +163,19 @@ def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
         A = linalg.mask_system(K, c.noise, mask)
         batch = A.shape[:-2]
         return inverse_mll.mll_via_inverse(
-            A, yy.expand(batch + yy.shape[-1:]), n_active.expand(batch))
+            A, yy.expand(batch + yy.shape[-1:]), n_active.expand(batch),
+            route_blocked)
     return linalg.mll(K, c.noise, y, mask=mask, mean=prior_mean)
 
 
 def map_objective(cfg: GPConfig, p: GPParams, X, y, mask=None,
                   prior_mean=None, prior_cov=None,
-                  extra_log_prior=0.0, method: str = "chol") -> torch.Tensor:
+                  extra_log_prior=0.0, method: str = "chol",
+                  route_blocked: bool = False) -> torch.Tensor:
     """Negative (MLL + log prior) — the quantity minimized during fitting."""
     c = constrain(cfg, p)
-    return -(mll(cfg, p, X, y, mask, prior_mean, prior_cov, method=method)
+    return -(mll(cfg, p, X, y, mask, prior_mean, prior_cov, method=method,
+                 route_blocked=route_blocked)
              + log_prior(cfg, c) + extra_log_prior)
 
 

@@ -84,14 +84,15 @@ def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
                         generator: Optional[torch.Generator] = None,
                         num_restarts: int = 5, num_steps: int = 60,
                         mll_method: str = "chol",
-                        init_stack: Optional[gp.GPParams] = None
-                        ) -> SourceStack:
+                        init_stack: Optional[gp.GPParams] = None,
+                        route_blocked: bool = False) -> SourceStack:
     """Fit all source GPs at once, tasks x restarts as one batch.
 
     ``data`` has a leading task axis T.  The restart stack is the warm start
     followed by ``num_restarts`` prior draws from ``generator``; pass
     ``init_stack`` (leaves with leading (T, num_restarts + 1) axes) to use
-    given draws instead.
+    given draws instead.  ``mll_method`` and ``route_blocked`` choose the
+    objective's MLL route (``gp.mll``).
     """
     T, _, d = data.X.shape
     dtype, dev = data.X.dtype, data.X.device
@@ -105,7 +106,8 @@ def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
     X, y, mask = data.X[:, None], data.y[:, None], data.mask[:, None]
 
     def objective(p):
-        return gp.map_objective(cfg, p, X, y, mask, method=mll_method)
+        return gp.map_objective(cfg, p, X, y, mask, method=mll_method,
+                                route_blocked=route_blocked)
 
     res = fit_lib.fit_map_restarts(objective, init_stack, num_steps=num_steps,
                                    batch_ndim=1)

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so`` at the
-root of the checkout (a directory git ignores), then loaded with ``ctypes``.
-The hash covers the source and the flags, so an edited source is rebuilt.
-Nothing is built or loaded when this module is imported: ``load`` builds at
-first use.
+Each ``csrc/<name>.cu`` of ``SOURCES`` exposes a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout (a
+directory git ignores), then loaded with ``ctypes``.  The hash covers the
+source and the flags, so an edited source is rebuilt.  Nothing is built or
+loaded when this module is imported: ``load`` builds at first use, and
+``build_all`` starts one ``nvcc`` per missing library, all at once.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: the kernel sources, one library each
+SOURCES = ("sweep_inverse", "blocked_chol_inverse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,26 +46,38 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is built already."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    return out
+def build_all(names=None) -> list:
+    """Compile every ``csrc/<name>.cu`` of ``names`` (default: ``SOURCES``)
+    whose library is not built yet, one ``nvcc`` each, all started
+    together.  Returns the libraries' paths."""
+    names = SOURCES if names is None else tuple(names)
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent build never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build_all([name])[0]))

@@ -9,9 +9,11 @@ For mll(A, y) = -1/2 (y^T A^{-1} y + log|A| + n log 2pi) the gradients are
 so once the forward pass has A^{-1} (which the sweep kernel produces), the
 backward pass is one outer product: no triangular solves.
 
-Forward routing, as in the reference: the sweep (N <= 128), then the
-blocked-Cholesky kernel (routed off in the reference and not ported yet),
-then the Cholesky inverse.
+Forward routing, as in the reference (``inverse_mll.py:53-62``): the sweep
+(N <= 128), then, with ``route_blocked``, the blocked-Cholesky kernel
+(192 <= N <= 1024), then the Cholesky inverse.  ``route_blocked`` is the
+argument form of the reference's module constant ``_ROUTE_BLOCKED`` and is
+off by default, as that constant is.
 """
 
 from __future__ import annotations
@@ -20,29 +22,40 @@ import math
 
 import torch
 
-from scamlgp_tpu_torch.ops import sweep
+from scamlgp_tpu_torch.ops import blocked_chol, sweep
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def blocked_profitable(N: int, itemsize: int = 4) -> bool:
-    """The reference routes its blocked-Cholesky kernel off
-    (``pallas_blocked_chol.py:74``, ``_ROUTE_BLOCKED = False``)."""
-    return False
+def kernel_launches() -> dict:
+    """Launches so far of each kernel wrapper of the inverse routes."""
+    counts = {"sweep_inverse": sweep.sweep_inverse.launches}
+    for v, n in blocked_chol.blocked_chol_inverse.launches.items():
+        counts[f"blocked_chol_inverse_{v}"] = n
+    return counts
 
 
-def inverse_mll_profitable(N: int, itemsize: int = 4) -> bool:
+def reset_kernel_launches() -> None:
+    sweep.sweep_inverse.launches = 0
+    for v in blocked_chol.blocked_chol_inverse.launches:
+        blocked_chol.blocked_chol_inverse.launches[v] = 0
+
+
+def inverse_mll_profitable(N: int, itemsize: int = 4,
+                           route_blocked: bool = False) -> bool:
     """Whether an inverse kernel serves this N (else callers use the
     Cholesky MLL, ``linalg.mll``)."""
     return (sweep.sweep_profitable(N)
-            or blocked_profitable(N, itemsize))
+            or blocked_chol.blocked_profitable(N, itemsize, route_blocked))
 
 
-def _inverse_auto(A: torch.Tensor):
+def _inverse_auto(A: torch.Tensor, route_blocked: bool = False):
     """(A^{-1}, log|A|) of a (B, N, N) batch through the applicable route."""
     N = A.shape[-1]
     if sweep.sweep_profitable(N):
         return sweep.sweep_inverse(A.contiguous())
+    if blocked_chol.blocked_profitable(N, A.element_size(), route_blocked):
+        return blocked_chol.blocked_chol_inverse(A.contiguous())
     return sweep.chol_inverse(A)
 
 
@@ -50,10 +63,10 @@ class MllViaInverse(torch.autograd.Function):
     """Batched Gaussian log-density with the analytic backward pass."""
 
     @staticmethod
-    def forward(ctx, A, y, n_active):
+    def forward(ctx, A, y, n_active, route_blocked=False):
         batch = A.shape[:-2]
         N = A.shape[-1]
-        Ainv, logdet = _inverse_auto(A.reshape(-1, N, N))
+        Ainv, logdet = _inverse_auto(A.reshape(-1, N, N), route_blocked)
         Ainv = Ainv.reshape(batch + (N, N))
         logdet = logdet.reshape(batch)
         alpha = torch.sum(Ainv * y[..., None, :], dim=-1)
@@ -75,12 +88,14 @@ class MllViaInverse(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             # the cotangent takes n_active's own shape, scalar included
             dn = (-0.5 * _LOG_2PI * g).sum_to_size(ctx.n_active_shape)
-        return dA, dy, dn
+        return dA, dy, dn, None
 
 
 def mll_via_inverse(A: torch.Tensor, y: torch.Tensor,
-                    n_active: torch.Tensor) -> torch.Tensor:
+                    n_active: torch.Tensor,
+                    route_blocked: bool = False) -> torch.Tensor:
     """A: (..., n, n) masked SPD system (``linalg.mask_system``); y: (..., n)
     centered targets, zero on padded rows; n_active: (...,) or scalar
-    active-row count.  Returns (...,)."""
-    return MllViaInverse.apply(A, y, n_active)
+    active-row count.  ``route_blocked`` lets 192 <= n <= 1024 take the
+    blocked-Cholesky kernel.  Returns (...,)."""
+    return MllViaInverse.apply(A, y, n_active, route_blocked)

@@ -9,7 +9,9 @@ evaluation.  The host loops over iterations only.
 
 With ``mll_method="sweep"`` every fit objective with N <= 128 goes through
 the hand-written sweep kernel (``ops/sweep.py``) with the analytic gradient
-of ``ops/inverse_mll.py``.
+of ``ops/inverse_mll.py``; with ``route_blocked`` as well, every one with
+192 <= N <= 1024 (the meta-fit of the points-per-task ablations) goes
+through the blocked-Cholesky kernels (``ops/blocked_chol.py``).
 
 Randomness comes from one ``torch.Generator`` on the host, seeded with an
 integer; its draws move to the device.  ``iteration_draws`` makes one
@@ -31,7 +33,7 @@ from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
-from scamlgp_tpu_torch.ops import sweep
+from scamlgp_tpu_torch.ops import inverse_mll
 from scamlgp_tpu_torch.utils.standardize import fit_standardize
 
 
@@ -48,6 +50,7 @@ class CampaignConfig:
     acq_steps: int = 30
     acq_lr: float = 0.05
     mll_method: str = "chol"               # "chol" | "sweep"
+    route_blocked: bool = False            # sweep: blocked kernel, mid N
     pruning_threshold: float = 1e-3        # model.py:226
     # fields of the posterior-marginalized fits, not ported yet
     hmc_chains: int = 2
@@ -67,8 +70,9 @@ class CampaignResult(NamedTuple):
     y_clean: torch.Tensor  # (S, E) noise-free losses
     meta_fit_seconds: float
     iteration_seconds: list  # host clock per BO iteration, device synced
-    sweep_launches: list     # sweep-kernel launches: meta-fit, then each
-    #                          iteration (all 0 where no CUDA tensor ran)
+    launches: dict           # kernel name -> launches in the meta-fit, then
+    #                          in each iteration (all 0 where no CUDA
+    #                          tensor ran)
 
 
 class IterationDraws(NamedTuple):
@@ -132,7 +136,8 @@ def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
         return gp.map_objective(target_cfg, p.gp, Xr, yr, mask=maskr,
                                 prior_mean=mean_p, prior_cov=cov_p,
                                 extra_log_prior=extra,
-                                method=cfg.mll_method)
+                                method=cfg.mll_method,
+                                route_blocked=cfg.route_blocked)
 
     stack0 = fit_lib.stack_restarts(params_warm, restarts, batch_ndim)
     return fit_lib.fit_map_restarts(objective, stack0, num_steps=cfg.fit_steps,
@@ -255,7 +260,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
 
     # ---- meta-fit: (study, task) folded into one task axis ----------------
     t0 = time.perf_counter()
-    counts = [sweep.sweep_inverse.launches]
+    counts = [inverse_mll.kernel_launches()]
     flat = m.TaskData(*[leaf.reshape((T,) + leaf.shape[2:])
                         for leaf in meta_data])
     warm = gp.init_params(source_cfg, d, dtype, device, batch_shape=(T,))
@@ -270,13 +275,14 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
         parts.append(m.meta_fit_task_stack(
             m.TaskData(*[leaf[sl] for leaf in flat]), source_cfg,
             num_steps=meta_fit_steps, mll_method=cfg.mll_method,
-            init_stack=fit_lib.tree_map(lambda leaf: leaf[sl], init_stack)))
+            init_stack=fit_lib.tree_map(lambda leaf: leaf[sl], init_stack),
+            route_blocked=cfg.route_blocked))
     flat_stack = fit_lib.tree_map(lambda *ls: torch.cat(ls), *parts)
     stack = fit_lib.tree_map(lambda leaf: leaf.reshape((S, M) + leaf.shape[1:]),
                              flat_stack)
     _sync(device)
     meta_fit_seconds = time.perf_counter() - t0
-    counts.append(sweep.sweep_inverse.launches)
+    counts.append(inverse_mll.kernel_launches())
 
     # ---- BO loop ----------------------------------------------------------
     Xbuf = torch.zeros((S, E, d), dtype=dtype, device=device)
@@ -295,12 +301,13 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             params, draws, i, source_cfg, target_cfg, cfg)
         _sync(device)
         iteration_seconds.append(time.perf_counter() - t0)
-        counts.append(sweep.sweep_inverse.launches)
+        counts.append(inverse_mll.kernel_launches())
     return CampaignResult(X=Xbuf, y=ybuf, y_clean=yclean,
                           meta_fit_seconds=meta_fit_seconds,
                           iteration_seconds=iteration_seconds,
-                          sweep_launches=[b - a for a, b in
-                                          zip(counts, counts[1:])])
+                          launches={k: [b[k] - a[k] for a, b in
+                                        zip(counts, counts[1:])]
+                                    for k in counts[0]})
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

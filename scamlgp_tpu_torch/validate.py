@@ -1,13 +1,21 @@
-"""Full-size Branin T8 campaign of the port, for comparison with the JAX
-package's committed curve ``docs/branin_t8_p32_n1_regrets_tpu_128studies.npy``.
+"""Full-size campaign of the port on a synthetic benchmark, for comparison
+with the JAX package's committed regret rows.
 
-    python -m scamlgp_tpu_torch.validate [--studies 128] [--evals 40]
-        [--mll-method sweep] [--seed 0] [--out regrets.npy] [--device cuda]
+    python -m scamlgp_tpu_torch.validate [--benchmark Branin] [--tasks 8]
+        [--points 32] [--sigma 1.0] [--studies 128] [--evals 40]
+        [--mll-method sweep] [--route-blocked] [--optimum-method shgo]
+        [--seed 0] [--out regrets.npy] [--device cuda]
 
-Branin, 8 meta-tasks x 32 points, noise 1.0, the CampaignConfig defaults,
-float32.  Prints one JSON line with the median simple regret
-per iteration, the timings, the sweep kernel's launches, and the card's
-name and power limit.
+The defaults are the Branin T8 run of the committed curve
+``docs/branin_t8_p32_n1_regrets_tpu_128studies.npy``: 8 meta-tasks x 32
+points, noise 1.0.  The points-per-task ablation rows are
+``--points 256 --studies 16 --route-blocked`` (Branin, committed in
+``docs/branin_ablation_points_n256_tpu.json``) and ``--benchmark
+Hartmann6D --points 512 --sigma 0.1 --studies 16 --evals 80
+--route-blocked --optimum-method device`` (``docs/hm6_ablation_points_tpu.json``).
+Always the CampaignConfig defaults and float32.  Prints one JSON line with
+the median simple regret per iteration, the timings, each kernel's
+launches, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -20,19 +28,16 @@ import time
 import numpy as np
 import torch
 
-from scamlgp_tpu_torch.benchmarking.benchmarks import Branin
+from scamlgp_tpu_torch.benchmarking import benchmarks
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
 from scamlgp_tpu_torch.config import resolve_device
-from scamlgp_tpu_torch.ops import sweep
 from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
     run_campaign,
     simple_regret,
 )
-
-TASKS, POINTS = 8, 32
 
 
 def _card(device: torch.device) -> str:
@@ -46,9 +51,19 @@ def _card(device: torch.device) -> str:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--benchmark", default="Branin",
+                    choices=["Branin", "Hartmann6D"])
+    ap.add_argument("--tasks", type=int, default=8)
+    ap.add_argument("--points", type=int, default=32)
+    ap.add_argument("--sigma", type=float, default=1.0)
     ap.add_argument("--studies", type=int, default=128)
     ap.add_argument("--evals", type=int, default=40)
     ap.add_argument("--mll-method", default="sweep", choices=["chol", "sweep"])
+    ap.add_argument("--route-blocked", action="store_true",
+                    help="let 192 <= N <= 1024 take the blocked-Cholesky "
+                         "kernels (with --mll-method sweep)")
+    ap.add_argument("--optimum-method", default="shgo",
+                    choices=["shgo", "device"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="save the (S, E) regrets")
     ap.add_argument("--device", default=None)
@@ -59,33 +74,38 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     fn, tp, md, optima = campaign_inputs_from_benchmark(
-        Branin, [POINTS] * TASKS, range(args.studies),
-        noise_std=1.0, dtype=torch.float32, device=device)
+        getattr(benchmarks, args.benchmark), [args.points] * args.tasks,
+        range(args.studies), noise_std=args.sigma, dtype=torch.float32,
+        device=device, optimum_method=args.optimum_method)
     setup_s = time.perf_counter() - t0
-    cfg = CampaignConfig(n_evaluations=args.evals, noise_std=1.0,
-                         mll_method=args.mll_method)
-    sweep.sweep_inverse.launches = 0
+    cfg = CampaignConfig(n_evaluations=args.evals, noise_std=args.sigma,
+                         mll_method=args.mll_method,
+                         route_blocked=args.route_blocked)
     t0 = time.perf_counter()
     res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device)
     run_s = time.perf_counter() - t0
     reg = simple_regret(res.y_clean, optima).cpu().numpy()
     med = np.median(reg, axis=0)
+    cum = reg.mean(axis=1)      # each study's average cumulative regret
     out = {
-        "benchmark": "Branin", "tasks": TASKS, "points": POINTS,
+        "benchmark": args.benchmark, "tasks": args.tasks,
+        "points": args.points, "sigma": args.sigma,
         "studies": args.studies, "evals": args.evals,
-        "dtype": "float32",
-        "mll_method": args.mll_method, "device": str(device),
+        "dtype": "float32", "mll_method": args.mll_method,
+        "route_blocked": args.route_blocked,
+        "optimum_method": args.optimum_method, "device": str(device),
         "card": _card(device),
         "setup_s": setup_s, "run_s": run_s,
         "meta_fit_s": res.meta_fit_seconds,
         "mean_iteration_s": float(np.mean(res.iteration_seconds)),
-        "sweep_launches": sweep.sweep_inverse.launches,
-        "sweep_launches_meta_fit": res.sweep_launches[0],
-        "sweep_launches_per_iteration": res.sweep_launches[1:],
+        "launches": {k: sum(v) for k, v in res.launches.items()},
+        "launches_meta_fit": {k: v[0] for k, v in res.launches.items()},
         "median_regret": [float(v) for v in med],
         "median_final_regret": float(med[-1]),
         "mean_final_regret": float(reg[:, -1].mean()),
         "mean_cumulative_regret": float(reg.mean()),
+        "avg_cum_regret_sem": float(cum.std(ddof=1) / np.sqrt(len(cum)))
+        if len(cum) > 1 else None,
     }
     print(json.dumps(out), flush=True)
     if args.out:

@@ -222,7 +222,9 @@ def test_tiny_campaign_chol_and_sweep_agree(inputs):
             device="cpu")
     a, b = out["chol"], out["sweep"]
     assert a.X.shape == (S, 3, 2) and len(a.iteration_seconds) == 3
-    assert a.sweep_launches == [0, 0, 0, 0]   # the CPU runs the plain sweep
+    # the CPU runs the plain versions: no kernel launches, for any kernel
+    assert a.launches["sweep_inverse"] == [0, 0, 0, 0]
+    assert all(c == [0, 0, 0, 0] for c in a.launches.values())
     assert ((a.X >= 0) & (a.X <= 1)).all()
     close(a.X, b.X.numpy(), rtol=1e-8, atol=1e-10)
     close(a.y_clean, b.y_clean.numpy(), rtol=1e-8, atol=1e-10)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the campaign on the card against the campaign on the CPU.
+version (the sweep, and both variants of the blocked Cholesky), and the
+campaign on the card against the campaign on the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so it also runs where those are
@@ -16,7 +17,7 @@ from scamlgp_tpu_torch.benchmarking.benchmarks import Branin
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
-from scamlgp_tpu_torch.ops import inverse_mll, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, inverse_mll, sweep
 from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
 
 pytestmark = pytest.mark.cuda
@@ -65,6 +66,63 @@ def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                             .expand(2, 4, 4))
 
 
+@pytest.mark.parametrize("variant", blocked_chol.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [64, 88, 192, 256, 512, 1024])
+def test_blocked_kernel_matches_plain(cuda, n, dtype, variant):
+    """Each variant at every fixture shape it can take (``smem`` needs the
+    lower blocks in one CTA's shared memory), same tolerances as the
+    sweep."""
+    itemsize = torch.finfo(dtype).bits // 8
+    if variant == "smem" and (blocked_chol.smem_bytes(n, itemsize)
+                              > blocked_chol.SMEM_LIMIT):
+        with pytest.raises(ValueError, match="shared memory"):
+            blocked_chol.blocked_chol_inverse(
+                torch.eye(n, dtype=dtype, device=cuda)[None], variant)
+        return
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 16, n),
+                        dtype=dtype, device=cuda)
+    before = blocked_chol.blocked_chol_inverse.launches[variant]
+    inv_k, ld_k = blocked_chol.blocked_chol_inverse(A, variant)
+    torch.cuda.synchronize()
+    assert blocked_chol.blocked_chol_inverse.launches[variant] == before + 1
+    inv_p, ld_p = blocked_chol.blocked_chol_inverse_reference(A)
+    tol_inv, tol_ld = ((1e-4, 1e-5) if dtype == torch.float32
+                       else (1e-11, 1e-12))
+    assert (inv_k - inv_p).abs().max().item() <= tol_inv * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= tol_ld
+
+
+@pytest.mark.parametrize("variant", blocked_chol.VARIANTS)
+def test_blocked_kernel_of_indefinite_matrix_is_not_finite(cuda, variant):
+    A = torch.eye(70, dtype=torch.float64)
+    A[0, 1] = A[1, 0] = 2.0
+    inv, ld = blocked_chol.blocked_chol_inverse(A[None].to(cuda), variant)
+    assert torch.isnan(ld).all() and not torch.isfinite(inv).all()
+
+
+def test_blocked_on_the_card_never_reaches_the_plain_version(cuda,
+                                                             monkeypatch):
+    def refuse(A):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(blocked_chol, "blocked_chol_inverse_reference",
+                        refuse)
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(2), 4, 256),
+                        device=cuda)
+    for variant in (None, *blocked_chol.VARIANTS):
+        inv, _ = blocked_chol.blocked_chol_inverse(A, variant)
+        assert inv.device.type == "cuda"
+    v = inverse_mll.mll_via_inverse(A, torch.ones(4, 256, device=cuda),
+                                    torch.full((4,), 256.0, device=cuda),
+                                    route_blocked=True)
+    assert torch.isfinite(v).all()
+    with pytest.raises(TypeError):
+        blocked_chol.blocked_chol_inverse(A.half())
+
+
 def test_mll_via_inverse_gradient_on_the_card(cuda):
     rng = np.random.default_rng(1)
     A = torch.as_tensor(_spd_batch(rng, 8, 24), dtype=torch.float64)
@@ -94,6 +152,27 @@ def test_campaign_on_the_card_matches_the_cpu(cuda):
         res = run_campaign(fn, tp, md, seed=0, cfg=cfg, meta_fit_restarts=2,
                            meta_fit_steps=12, device=dev)
         xs.append(res.X.cpu())
-    assert sweep.sweep_inverse.launches == sum(res.sweep_launches) > 0
-    assert len(res.sweep_launches) == 3
+    counts = res.launches["sweep_inverse"]
+    assert sweep.sweep_inverse.launches == sum(counts) > 0
+    assert len(counts) == 3
+    torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
+
+
+def test_blocked_route_campaign_on_the_card_matches_the_cpu(cuda):
+    """N_m = 192 with ``route_blocked``: the meta-fit's systems take the
+    blocked kernel on the card and its plain version on the CPU, and the
+    two propose the same points (float64)."""
+    fn, tp, md, _ = campaign_inputs_from_benchmark(
+        Branin, [192] * 2, range(2), noise_std=1.0, dtype=torch.float64,
+        device="cpu")
+    cfg = CampaignConfig(n_evaluations=2, mll_method="sweep",
+                         route_blocked=True, fit_steps=10,
+                         acq_raw_samples=32, acq_topk=3, acq_steps=8)
+    xs = []
+    for dev in ("cpu", cuda):
+        res = run_campaign(fn, tp, md, seed=0, cfg=cfg, meta_fit_restarts=1,
+                           meta_fit_steps=8, device=dev)
+        xs.append(res.X.cpu())
+    assert res.launches["blocked_chol_inverse_smem"][0] > 0
+    assert sum(res.launches["blocked_chol_inverse_global"]) == 0
     torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
