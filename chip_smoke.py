@@ -9,25 +9,38 @@ Phases, each printing one JSON line with its own seconds:
 2. build: nvcc builds every kernel source of ``scamlgp_tpu_torch/csrc``
    into ``build/torch_kernels``, one nvcc per source, all started together;
 3. kernel: each kernel's wrapper against its plain PyTorch version on the
-   card, on the fixture's shapes and on the campaign's, then timed at the
-   campaign's shapes beside the plain version, one PyTorch library call
-   computing the same function, and the roofline bound.  Kernels: the sweep
-   inverse, and the blocked-Cholesky inverse in its two variants, ``smem``
-   and ``global``;
+   card, on the fixture's shapes and on the campaign's, in float32 and
+   float64, then timed at the campaign's shapes beside the plain version,
+   one PyTorch library call computing the same function, and the roofline
+   bound.  Kernels: the sweep inverse in its four step schemes (``select``,
+   ``fused``, ``pair``, ``blocked``), and the blocked-Cholesky inverse in
+   its two variants, ``smem`` and ``global``;
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
 
-   - Branin T8 (8 meta-tasks x 32 points, d=2, noise 1.0): the sweep kernel
-     in the meta-fit and the target fits;
+   - Branin T8 (8 meta-tasks x 32 points, d=2, noise 1.0): the ``select``
+     sweep kernel in the meta-fit and the target fits;
    - Branin T8 N_m=256 (noise 1.0, ``route_blocked=True``): the meta-fit's
      (1024, 256, 256) systems through the ``smem`` blocked kernel;
    - Hartmann6D T8 N_m=512 (d=6, noise 0.1, ``route_blocked=True``): the
      meta-fit's (256, 512, 512) systems through the ``global`` blocked
      kernel;
+   - Hartmann6D T8 N_m=128 (d=6, noise 0.1, ``sweep_variant="fused"``, the
+     reference's ``SCAMLGP_SWEEP_STEP=fused``): the meta-fit's
+     (1024, 128, 128) systems and the target fits through the ``fused``
+     sweep kernel;
 
-   each cut in studies and evaluations only;
-5. the card's nvidia-smi line, the kernels line, and the last line
+   each cut in studies and evaluations only.  On the slices with N <= 128
+   the MLL of the meta-fit's own float32 systems is held against float64
+   for every sweep scheme, built as the port builds it (without FMA
+   contraction) and with ``-fmad=true``, and for its plain version: a
+   kernel farther from float64 than twice its plain version fails;
+5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
+   bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
+   launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
+   kernels on the MAP objective's value and gradient;
+6. the card's nvidia-smi line, the kernels line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the result lines.  With no CUDA
@@ -42,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from scamlgp_tpu_torch import bench_sweep_n
 from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
@@ -59,24 +73,38 @@ from scamlgp_tpu_torch.parallel.campaign import (
     run_campaign,
     simple_regret,
 )
+from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 # Slices: S studies x E evaluations of each configuration (the model's
 # width, M=8 tasks x N_m points, d, the noise and the CampaignConfig
 # defaults, is not cut).
 SLICES = {
-    "branin_t8_p32": dict(benchmark=Branin, studies=32, evals=10, tasks=8,
+    "branin_t8_p32": dict(benchmark=Branin, studies=32, evals=6, tasks=8,
                           points=32, sigma=1.0, route_blocked=False,
-                          optimum="shgo", kernels=("sweep_inverse",)),
+                          sweep_variant="select", optimum="shgo",
+                          kernels=("sweep_inverse",)),
     "branin_t8_p256": dict(benchmark=Branin, studies=32, evals=3, tasks=8,
                            points=256, sigma=1.0, route_blocked=True,
-                           optimum="shgo",
+                           sweep_variant="select", optimum="shgo",
                            kernels=("blocked_chol_inverse_smem",)),
     "hartmann6_t8_p512": dict(benchmark=Hartmann6D, studies=8, evals=2,
                               tasks=8, points=512, sigma=0.1,
-                              route_blocked=True, optimum="device",
+                              route_blocked=True, sweep_variant="select",
+                              optimum="device",
                               kernels=("blocked_chol_inverse_global",)),
+    "hartmann6_t8_p128": dict(benchmark=Hartmann6D, studies=32, evals=2,
+                              tasks=8, points=128, sigma=0.1,
+                              route_blocked=False, sweep_variant="fused",
+                              optimum="device",
+                              kernels=("sweep_inverse_fused",)),
 }
 META_RESTARTS, META_STEPS = 3, 50
+#: the bench phase's shape and rounds (every variant of the bench)
+BENCH_SHAPE, BENCH_ROUNDS = (4096, 128), 5
+#: the second build of the sweep kernels, with FMA contraction (nvcc's
+#: default), for the rounding comparison
+FMAD_ON = ("-fmad=true",)
+SWEEP_SOURCES = ("sweep_inverse", "sweep_variants")
 
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
 # tensor cores.
@@ -162,11 +190,14 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    cold = [n for n in cuda_build.SOURCES
-            if not cuda_build.library_path(n).exists()]
-    cuda_build.build_all()
-    for name in cuda_build.SOURCES:
-        cuda_build.load(name)
+    builds = ([(n, None) for n in cuda_build.SOURCES]
+              + [(n, FMAD_ON) for n in SWEEP_SOURCES])
+    cold = [f"{n}{''.join(' ' + f for f in flags or ())}"
+            for n, flags in builds
+            if not cuda_build.library_path(n, flags).exists()]
+    cuda_build.build_all(builds)
+    for name, flags in builds:
+        cuda_build.load(name, flags)
     emit("build", time.perf_counter() - t0, sources=list(cuda_build.SOURCES),
          built_cold=cold)
 
@@ -175,9 +206,16 @@ def blocked(variant):
     return lambda A: blocked_chol.blocked_chol_inverse(A, variant)
 
 
+def swept(variant):
+    return (lambda A: sweep.sweep_inverse(A, variant),
+            lambda A: sweep.sweep_inverse_reference(A, variant))
+
+
+SWEEP_VARIANT_OF = {sweep.kernel_name(v): v for v in sweep.VARIANTS}
+
 # name -> (kernel wrapper, plain version)
 KERNELS = {
-    "sweep_inverse": (sweep.sweep_inverse, sweep.sweep_inverse_reference),
+    **{sweep.kernel_name(v): swept(v) for v in sweep.VARIANTS},
     "blocked_chol_inverse_smem": (
         blocked("smem"), blocked_chol.blocked_chol_inverse_reference),
     "blocked_chol_inverse_global": (
@@ -211,10 +249,16 @@ def time_kernel(name, A, reps, plain_reps):
     kernel, plain = KERNELS[name]
     B, N, _ = A.shape
     bound_ms, bound_by = bound(B, N, A.dtype)
-    return dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
-                plain_ms=time_ms(lambda: plain(A), plain_reps),
-                library_ms=time_ms(lambda: library_inverse(A), 10),
-                bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
+               plain_ms=time_ms(lambda: plain(A), plain_reps),
+               library_ms=time_ms(lambda: library_inverse(A), 10),
+               bound_ms=bound_ms, bound_by=bound_by)
+    variant = SWEEP_VARIANT_OF.get(name)
+    if variant is not None:
+        # the same kernel built with FMA contraction, in the same call
+        out["ms_fmad_on"] = time_ms(
+            lambda: sweep._launch(A, variant, FMAD_ON), reps)
+    return out
 
 
 def phase_kernel():
@@ -229,12 +273,17 @@ def phase_kernel():
         return torch.as_tensor(spd_batch(rng, b, n), dtype=dtype,
                                device="cuda")
 
+    # each scheme at the N it takes: odd and even N for select and fused,
+    # even N for pair, N % 32 == 0 for blocked
+    sweep_ns = {"select": (8, 32, 40, 128), "fused": (9, 32, 40, 128),
+                "pair": (8, 32, 40, 128), "blocked": (32, 64, 96, 128)}
     for dtype in (torch.float32, torch.float64):
-        for n in (8, 32, 40, 128):
-            err = check_kernel("sweep_inverse", fixture(256, n, dtype),
-                               "fixture")
-            if dtype == torch.float32:
-                max_err["sweep_inverse"] = max(max_err["sweep_inverse"], err)
+        for variant, ns in sweep_ns.items():
+            name = sweep.kernel_name(variant)
+            for n in ns:
+                err = check_kernel(name, fixture(256, n, dtype), "fixture")
+                if dtype == torch.float32:
+                    max_err[name] = max(max_err[name], err)
         for n in (64, 88, 192, 256, 512, 1024):
             A = fixture(64 if n <= 256 else 16, n, dtype)
             for variant in blocked_chol.VARIANTS:
@@ -247,17 +296,15 @@ def phase_kernel():
                     max_err[name] = max(max_err[name], err)
 
     cfg = CampaignConfig()
-    p32, p256, p512 = (SLICES[k] for k in
-                       ("branin_t8_p32", "branin_t8_p256",
-                        "hartmann6_t8_p512"))
+    p32, p256, p512, p128 = (SLICES[k] for k in
+                             ("branin_t8_p32", "branin_t8_p256",
+                              "hartmann6_t8_p512", "hartmann6_t8_p128"))
 
     def meta_batch(sl):
         return sl["studies"] * sl["tasks"] * (META_RESTARTS + 1)
 
     # (kernel, what, B, N, launches timed, plain launches timed)
     shapes = [
-        ("sweep_inverse", "meta_fit", meta_batch(p32), p32["points"], 200,
-         10),
         ("sweep_inverse", "target_fit",
          p32["studies"] * (cfg.fit_restarts + 1), p32["evals"], 200, 10),
         ("blocked_chol_inverse_smem", "meta_fit", meta_batch(p256),
@@ -268,6 +315,21 @@ def phase_kernel():
         ("blocked_chol_inverse_global", "smem_shape", meta_batch(p256),
          p256["points"], 20, 3),
     ]
+    # every sweep scheme at the p32 and hm6 p128 meta-fits' shapes and at
+    # the bench's
+    for variant in sweep.VARIANTS:
+        name = sweep.kernel_name(variant)
+        shapes += [
+            (name, "p32_meta_fit", meta_batch(p32), p32["points"], 200, 10),
+            (name, "p128_meta_fit", meta_batch(p128), p128["points"], 20, 2),
+            (name, "bench", *BENCH_SHAPE, 20, 2),
+        ]
+    # the shape of each kernel's own path, for the kernels line
+    head = {"sweep_inverse": "p32_meta_fit",
+            "sweep_inverse_fused": "p128_meta_fit",
+            "sweep_inverse_pair": "bench", "sweep_inverse_blocked": "bench",
+            "blocked_chol_inverse_smem": "meta_fit",
+            "blocked_chol_inverse_global": "meta_fit"}
     timed = {}
     for name, what, B, N, reps, plain_reps in shapes:
         A = fixture(B, N, torch.float32)
@@ -277,19 +339,47 @@ def phase_kernel():
         del A
         torch.cuda.empty_cache()
     emit("kernel", time.perf_counter() - t0, dtype="float32", shapes=timed)
-    return max_err, {k: v["meta_fit"] for k, v in timed.items()}
+    return max_err, {k: timed[k][w] for k, w in head.items()}
 
 
-def mll_plain(A, y, n_active):
+def mll_of(Ainv, logdet, y, n_active):
+    quad = torch.sum(y * torch.sum(Ainv * y[:, None, :], -1), -1)
+    return -0.5 * (quad + logdet + n_active * np.log(2 * np.pi))
+
+
+def mll_plain(A, y, n_active, variant="select"):
     """``inverse_mll.mll_via_inverse`` with the plain versions in place of
     the kernels, routed as the port routes with ``route_blocked``."""
     N = A.shape[-1]
     if sweep.sweep_profitable(N):
-        Ainv, logdet = sweep.sweep_inverse_reference(A)
+        Ainv, logdet = sweep.sweep_inverse_reference(A, variant)
     else:
         Ainv, logdet = blocked_chol.blocked_chol_inverse_reference(A)
-    quad = torch.sum(y * torch.sum(Ainv * y[:, None, :], -1), -1)
-    return -0.5 * (quad + logdet + n_active * np.log(2 * np.pi))
+    return mll_of(Ainv, logdet, y, n_active)
+
+
+def rounding(A, y, n_active, truth, key):
+    """Each sweep scheme's float32 MLL on these systems against ``truth``
+    (float64): the kernel as the port builds it, the kernel built with FMA
+    contraction, and the plain version; each as [max, median] over the
+    systems of the relative error (|error| / max(|truth|, 1)).  Fails if
+    the kernel's max is above twice the plain version's."""
+    def rel(v):
+        r = (v.double() - truth).abs() / truth.abs().clamp_min(1.0)
+        return [r.max().item(), r.median().item()]
+
+    out = {}
+    for v in sweep.VARIANTS:
+        if sweep.resolve_variant(A.shape[-1], v) != v:
+            continue
+        out[v] = {"kernel": rel(mll_of(*sweep._launch(A, v), y, n_active)),
+                  "kernel_fmad_on": rel(mll_of(
+                      *sweep._launch(A, v, FMAD_ON), y, n_active)),
+                  "plain": rel(mll_plain(A, y, n_active, v))}
+        check(out[v]["kernel"][0] <= 2.0 * out[v]["plain"][0],
+              f"{key}: the {v} kernel's MLL is {out[v]['kernel'][0]} from "
+              f"float64, its plain version's {out[v]['plain'][0]}")
+    return out
 
 
 def phase_slice(key):
@@ -303,15 +393,18 @@ def phase_slice(key):
     setup_s = time.perf_counter() - t0
     cfg = CampaignConfig(n_evaluations=sl["evals"], noise_std=sl["sigma"],
                          mll_method="sweep",
-                         route_blocked=sl["route_blocked"])
+                         route_blocked=sl["route_blocked"],
+                         sweep_variant=sl["sweep_variant"])
     S, M, N, d = md.X.shape
 
+    GLOBAL_TIMER.reset()
     inverse_mll.reset_kernel_launches()
     res = run_campaign(fn, tp, md, seed=0, cfg=cfg,
                        meta_fit_restarts=META_RESTARTS,
                        meta_fit_steps=META_STEPS, device="cuda")
     torch.cuda.synchronize()
     launches = inverse_mll.kernel_launches()
+    stages = GLOBAL_TIMER.report()
 
     for name in sl["kernels"]:
         check(res.launches[name][0] > 0,
@@ -319,8 +412,12 @@ def phase_slice(key):
     for name, counts in res.launches.items():
         if name not in sl["kernels"]:
             check(counts[0] == 0, f"{key}: the meta-fit launched {name}")
-    check(sum(res.launches["sweep_inverse"][1:]) > 0,
-          f"{key}: the target fits launched the sweep kernel no time")
+    # the target fits' systems are E x E: the slice's scheme where E allows
+    # it, else select
+    target = sweep.kernel_name(sweep.resolve_variant(sl["evals"],
+                                                     sl["sweep_variant"]))
+    check(sum(res.launches[target][1:]) > 0,
+          f"{key}: the target fits launched {target} no time")
     check(sum(launches.values()) == sum(sum(c) for c in
                                         res.launches.values()),
           f"{key}: launch counts of the run and of the result differ")
@@ -342,11 +439,14 @@ def phase_slice(key):
     A = linalg.mask_system(gp.gram(scfg, c, flat_X), c.noise, flat_m)
     y = flat_y * flat_m
     na = flat_m.sum(-1)
-    plain = mll_plain(A, y, na)
-    kern = inverse_mll.mll_via_inverse(A, y, na, sl["route_blocked"])
+    plain = mll_plain(A, y, na, sl["sweep_variant"])
+    kern = inverse_mll.mll_via_inverse(A, y, na, sl["route_blocked"],
+                                       sl["sweep_variant"])
     diff = (kern - plain).abs()
     # both f32 results against the plain version in f64 on the same systems
     truth = mll_plain(A.double(), y.double(), na.double())
+    extra = ({"rounding": rounding(A, y, na, truth, key)}
+             if sweep.sweep_profitable(N) else {})
 
     def rel_to_truth(v):
         return ((v.double() - truth).abs()
@@ -356,8 +456,10 @@ def phase_slice(key):
     emit("slice", time.perf_counter() - t0, slice=key,
          benchmark=sl["benchmark"].__name__, tasks=M, points=N, d=d,
          sigma=sl["sigma"], route_blocked=sl["route_blocked"],
+         sweep_variant=sl["sweep_variant"],
          studies=S, evaluations=sl["evals"], setup_s=setup_s,
          meta_fit_s=res.meta_fit_seconds, iteration_s=per_iter,
+         nonfinite_source_tasks=res.nonfinite_source_tasks,
          mean_iteration_s=float(np.mean(per_iter)),
          median_final_regret=float(regret[:, -1].median()),
          median_regret=[float(v) for v in regret.median(dim=0).values],
@@ -368,13 +470,45 @@ def phase_slice(key):
          mll_kernel_vs_plain_max_rel=(diff / plain.abs().clamp_min(1.0))
          .max().item(),
          mll_kernel_vs_f64_max_rel=rel_to_truth(kern),
-         mll_plain_vs_f64_max_rel=rel_to_truth(plain))
+         mll_plain_vs_f64_max_rel=rel_to_truth(plain), stages=stages,
+         **extra)
+    return launches
+
+
+def phase_bench():
+    """The kernel N-scaling bench at BENCH_SHAPE with every variant; every
+    entry must be a number, and the pair and blocked variants must have
+    run their kernels.  Returns the launches of every kernel."""
+    t0 = time.perf_counter()
+    inverse_mll.reset_kernel_launches()
+    out = bench_sweep_n.run([BENCH_SHAPE], list(bench_sweep_n.VARIANTS),
+                            device="cuda", rounds=BENCH_ROUNDS)
+    torch.cuda.synchronize()
+    launches = inverse_mll.kernel_launches()
+    row = out["results"][0]
+    for variant in bench_sweep_n.VARIANTS:
+        check(isinstance(row[variant], float),
+              f"bench_sweep_n {variant}: {row[variant]}")
+    for variant in ("fused", "pair", "blocked"):
+        name = sweep.kernel_name(variant)
+        check(row["launches"][variant].get(name, 0) > 0,
+              f"bench_sweep_n {variant} launched {name} no time")
+    emit("bench_sweep_n", time.perf_counter() - t0, card=out["card"],
+         B=row["B"], N=row["N"], rounds=BENCH_ROUNDS,
+         evals_per_s={v: row[v] for v in bench_sweep_n.VARIANTS},
+         launches_by_variant=row["launches"], launches=launches)
     return launches
 
 
 REPLACES = {
     "sweep_inverse": ("scamlgp_tpu_torch/csrc/sweep_inverse.cu",
                       "scamlgp_tpu/ops/pallas_sweep.py:96"),
+    "sweep_inverse_fused": ("scamlgp_tpu_torch/csrc/sweep_variants.cu",
+                            "scamlgp_tpu/ops/pallas_sweep.py:140"),
+    "sweep_inverse_pair": ("scamlgp_tpu_torch/csrc/sweep_variants.cu",
+                           "scamlgp_tpu/ops/pallas_sweep.py:183"),
+    "sweep_inverse_blocked": ("scamlgp_tpu_torch/csrc/sweep_variants.cu",
+                              "scamlgp_tpu/ops/pallas_sweep.py:268"),
     "blocked_chol_inverse_smem": (
         "scamlgp_tpu_torch/csrc/blocked_chol_inverse.cu",
         "scamlgp_tpu/ops/pallas_blocked_chol.py:225"),
@@ -389,9 +523,14 @@ def main():
     phase_build()
     max_err, head = phase_kernel()
     by_slice = {key: phase_slice(key) for key in SLICES}
-    # each kernel's launches in the slice whose main path it carries
-    launches = {name: by_slice[key][name]
-                for key, sl in SLICES.items() for name in sl["kernels"]}
+    by_slice["bench_sweep_n"] = phase_bench()
+    # each kernel's launches in the slice (or the bench) whose main path
+    # carries it
+    carrier = {name: key for key, sl in SLICES.items()
+               for name in sl["kernels"]}
+    carrier.update(sweep_inverse_pair="bench_sweep_n",
+                   sweep_inverse_blocked="bench_sweep_n")
+    launches = {name: by_slice[key][name] for name, key in carrier.items()}
     kernels = []
     for name in KERNELS:
         source, replaces = REPLACES[name]

@@ -25,6 +25,11 @@
 // the 132 SMs with independent CTAs.  Pivot row and column are staged into
 // two shared vectors so every element update reads them without conflicts.
 //
+// Built without FMA contraction (-fmad=false, cuda_build.SOURCE_FLAGS), so
+// that each update rounds as the plain PyTorch version's does: with
+// contraction the MLL of nearly singular float32 systems lay 5x farther
+// from float64 than the plain version's (PERF.md, section 6).
+//
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after the launch, 0 on success.
 

@@ -133,17 +133,20 @@ def gram(cfg: GPConfig, c: Constrained, x, z=None):
 
 def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
         prior_mean=None, prior_cov=None, method: str = "chol",
-        route_blocked: bool = False) -> torch.Tensor:
+        route_blocked: bool = False, sweep_variant: str = "select",
+        inverse_route: str = "auto") -> torch.Tensor:
     """Marginal log-likelihood log N(y | prior_mean, K + prior_cov + noise I).
 
     Methods:
 
     - ``"chol"``: Cholesky MLL with autograd (the parity path);
     - ``"sweep"``: the inverse route with the analytic gradient
-      (``ops/inverse_mll.py``), through the sweep kernel for N <= 128 and,
-      with ``route_blocked``, the blocked-Cholesky kernel for
-      192 <= N <= 1024; falls back to ``"chol"`` where no inverse route
-      serves this N.
+      (``ops/inverse_mll.py``), through the sweep kernel of step scheme
+      ``sweep_variant`` for N <= 128 and, with ``route_blocked``, the
+      blocked-Cholesky kernel for 192 <= N <= 1024; falls back to
+      ``"chol"`` where no inverse route serves this N.  ``inverse_route``
+      other than ``"auto"`` forces one forward route at every N
+      (``inverse_mll.ROUTES``), as the kernel N-scaling bench does.
     """
     if method not in ("chol", "sweep"):
         raise ValueError(f"unknown mll method {method!r} (chol | sweep)")
@@ -152,7 +155,7 @@ def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
     if prior_cov is not None:
         K = K + prior_cov
     if method == "sweep" and inverse_mll.inverse_mll_profitable(
-            K.shape[-1], K.element_size(), route_blocked):
+            K.shape[-1], K.element_size(), route_blocked, inverse_route):
         yy = y if prior_mean is None else y - prior_mean
         if mask is not None:
             yy = yy * mask
@@ -164,18 +167,20 @@ def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
         batch = A.shape[:-2]
         return inverse_mll.mll_via_inverse(
             A, yy.expand(batch + yy.shape[-1:]), n_active.expand(batch),
-            route_blocked)
+            route_blocked, sweep_variant, inverse_route)
     return linalg.mll(K, c.noise, y, mask=mask, mean=prior_mean)
 
 
 def map_objective(cfg: GPConfig, p: GPParams, X, y, mask=None,
                   prior_mean=None, prior_cov=None,
                   extra_log_prior=0.0, method: str = "chol",
-                  route_blocked: bool = False) -> torch.Tensor:
+                  route_blocked: bool = False, sweep_variant: str = "select",
+                  inverse_route: str = "auto") -> torch.Tensor:
     """Negative (MLL + log prior) — the quantity minimized during fitting."""
     c = constrain(cfg, p)
     return -(mll(cfg, p, X, y, mask, prior_mean, prior_cov, method=method,
-                 route_blocked=route_blocked)
+                 route_blocked=route_blocked, sweep_variant=sweep_variant,
+                 inverse_route=inverse_route)
              + log_prior(cfg, c) + extra_log_prior)
 
 

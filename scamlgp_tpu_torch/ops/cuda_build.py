@@ -7,6 +7,12 @@ directory git ignores), then loaded with ``ctypes``.  The hash covers the
 source and the flags, so an edited source is rebuilt.  Nothing is built or
 loaded when this module is imported: ``load`` builds at first use, and
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
+
+A source is built with ``NVCC_FLAGS`` and its own ``SOURCE_FLAGS``;
+``flags`` given to ``library_path``, ``build_all`` or ``load`` replace the
+latter, for a second build beside the port's (``chip_smoke.py`` builds the
+sweep kernels with ``-fmad=true`` as well, to measure what FMA contraction
+does to their rounding); the port's wrappers load the port's build.
 """
 
 from __future__ import annotations
@@ -23,9 +29,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 #: the kernel sources, one library each
-SOURCES = ("sweep_inverse", "blocked_chol_inverse")
+SOURCES = ("sweep_inverse", "sweep_variants", "blocked_chol_inverse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+#: each source's flags beyond NVCC_FLAGS.  The sweep kernels are built
+#: without FMA contraction: with it, their MLL on the campaign's nearly
+#: singular float32 systems lay 5x farther from float64 than their plain
+#: versions'; without it, it equals theirs (PERF.md, section 6).
+SOURCE_FLAGS = {"sweep_inverse": ("-fmad=false",),
+                "sweep_variants": ("-fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -40,27 +52,36 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
-def library_path(name: str) -> Path:
+def _flags(name: str, flags=None) -> tuple:
+    return NVCC_FLAGS + tuple(SOURCE_FLAGS.get(name, ()) if flags is None
+                              else flags)
+
+
+def library_path(name: str, flags=None) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(_flags(name, flags)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=None) -> list:
-    """Compile every ``csrc/<name>.cu`` of ``names`` (default: ``SOURCES``)
-    whose library is not built yet, one ``nvcc`` each, all started
-    together.  Returns the libraries' paths."""
-    names = SOURCES if names is None else tuple(names)
-    outs = [library_path(n) for n in names]
+def build_all(builds=None) -> list:
+    """Compile each (name, flags) of ``builds`` (default: every ``SOURCES``
+    name with its own flags, ``flags=None``) whose library is not built
+    yet, one ``nvcc`` each, all started together.  Returns the libraries'
+    paths in the order of ``builds``."""
+    builds = ([(n, None) for n in SOURCES] if builds is None
+              else list(builds))
+    outs = [library_path(n, f) for n, f in builds]
     jobs = []
-    for name, out in zip(names, outs):
+    for (name, flags), out in zip(builds, outs):
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [_nvcc(), *_flags(name, flags), "-o", tmp,
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
     failed = []
@@ -78,6 +99,7 @@ def build_all(names=None) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(build_all([name])[0]))
+def load(name: str, flags=None) -> ctypes.CDLL:
+    """The kernel library of ``csrc/<name>.cu``, built at first use (with
+    ``flags`` in place of the source's own ``SOURCE_FLAGS``)."""
+    return ctypes.CDLL(str(build_all([(name, flags)])[0]))

@@ -8,10 +8,18 @@ ascent of all S studies x starts as one batched Adam, and the benchmark
 evaluation.  The host loops over iterations only.
 
 With ``mll_method="sweep"`` every fit objective with N <= 128 goes through
-the hand-written sweep kernel (``ops/sweep.py``) with the analytic gradient
-of ``ops/inverse_mll.py``; with ``route_blocked`` as well, every one with
-192 <= N <= 1024 (the meta-fit of the points-per-task ablations) goes
-through the blocked-Cholesky kernels (``ops/blocked_chol.py``).
+the hand-written sweep kernel of step scheme ``sweep_variant``
+(``ops/sweep.py``) with the analytic gradient of ``ops/inverse_mll.py``;
+with ``route_blocked`` as well, every one with 192 <= N <= 1024 (the
+meta-fit of the points-per-task ablations) goes through the
+blocked-Cholesky kernels (``ops/blocked_chol.py``).
+
+The stages are timed in ``utils.profiling.GLOBAL_TIMER`` under the
+reference's names (``campaign_stage_inputs``, ``campaign_meta_fit``,
+``campaign_bo_loop``, ``campaign_iteration``) and, within an iteration,
+``iteration_draws``, ``iteration_fit_target``, ``iteration_acq_state``,
+``iteration_propose`` and ``iteration_benchmark``; each stage synchronizes
+the card before its clock is read.
 
 Randomness comes from one ``torch.Generator`` on the host, seeded with an
 integer; its draws move to the device.  ``iteration_draws`` makes one
@@ -34,6 +42,7 @@ from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.ops import inverse_mll
+from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 from scamlgp_tpu_torch.utils.standardize import fit_standardize
 
 
@@ -51,6 +60,7 @@ class CampaignConfig:
     acq_lr: float = 0.05
     mll_method: str = "chol"               # "chol" | "sweep"
     route_blocked: bool = False            # sweep: blocked kernel, mid N
+    sweep_variant: str = "select"          # sweep: step scheme, N <= 128
     pruning_threshold: float = 1e-3        # model.py:226
     # fields of the posterior-marginalized fits, not ported yet
     hmc_chains: int = 2
@@ -73,6 +83,9 @@ class CampaignResult(NamedTuple):
     launches: dict           # kernel name -> launches in the meta-fit, then
     #                          in each iteration (all 0 where no CUDA
     #                          tensor ran)
+    nonfinite_source_tasks: int  # fitted source GPs whose cached factor
+    #                              or alpha is not finite (their study's
+    #                              predictions are then not finite either)
 
 
 class IterationDraws(NamedTuple):
@@ -137,7 +150,8 @@ def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
                                 prior_mean=mean_p, prior_cov=cov_p,
                                 extra_log_prior=extra,
                                 method=cfg.mll_method,
-                                route_blocked=cfg.route_blocked)
+                                route_blocked=cfg.route_blocked,
+                                sweep_variant=cfg.sweep_variant)
 
     stack0 = fit_lib.stack_restarts(params_warm, restarts, batch_ndim)
     return fit_lib.fit_map_restarts(objective, stack0, num_steps=cfg.fit_steps,
@@ -186,20 +200,24 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
     """One lock-step BO iteration of every study: refit, propose, evaluate.
     Returns the updated (Xbuf, ybuf, yclean, mask, params)."""
     S, M = stack.data.X.shape[:2]
-    dtype = Xbuf.dtype
-    out_mean, out_std = _out_transform(stack, ybuf, mask)
-    warm = m.TargetParams(
-        raw_weights=m.weights_inverse(torch.full(
-            (S, M), 1.0 / M, dtype=dtype, device=Xbuf.device)),
-        gp=params.gp)
-    params = _fit_target(stack, source_cfg, target_cfg, warm, Xbuf, ybuf,
-                         mask, out_mean, out_std, draws.restarts, cfg)
-    state = _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf,
-                             ybuf, mask, out_mean, out_std,
-                             cfg.pruning_threshold)
-    x_star = _propose(stack, source_cfg, target_cfg, state, Xbuf, draws.raw,
-                      cfg)
-    y_clean = benchmark_fn(x_star, task_params).to(dtype)
+    dtype, dev = Xbuf.dtype, Xbuf.device
+    with GLOBAL_TIMER("iteration_fit_target", dev):
+        out_mean, out_std = _out_transform(stack, ybuf, mask)
+        warm = m.TargetParams(
+            raw_weights=m.weights_inverse(torch.full(
+                (S, M), 1.0 / M, dtype=dtype, device=dev)),
+            gp=params.gp)
+        params = _fit_target(stack, source_cfg, target_cfg, warm, Xbuf, ybuf,
+                             mask, out_mean, out_std, draws.restarts, cfg)
+    with GLOBAL_TIMER("iteration_acq_state", dev):
+        state = _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf,
+                                 ybuf, mask, out_mean, out_std,
+                                 cfg.pruning_threshold)
+    with GLOBAL_TIMER("iteration_propose", dev):
+        x_star = _propose(stack, source_cfg, target_cfg, state, Xbuf,
+                          draws.raw, cfg)
+    with GLOBAL_TIMER("iteration_benchmark", dev):
+        y_clean = benchmark_fn(x_star, task_params).to(dtype)
     y_noisy = y_clean + cfg.noise_std * draws.noise
     Xbuf, ybuf, yclean, mask = (t.clone() for t in (Xbuf, ybuf, yclean, mask))
     Xbuf[:, i] = x_star
@@ -207,11 +225,6 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
     yclean[:, i] = y_clean
     mask[:, i] = 1.0
     return Xbuf, ybuf, yclean, mask, params
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
@@ -247,8 +260,9 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
     device = resolve_device(device)
     source_cfg = source_cfg or gp.source_gp_config()
     target_cfg = target_cfg or gp.target_gp_config()
-    meta_data = m.TaskData(*[leaf.to(device) for leaf in meta_data])
-    task_params = {k: v.to(device) for k, v in task_params.items()}
+    with GLOBAL_TIMER("campaign_stage_inputs", device):
+        meta_data = m.TaskData(*[leaf.to(device) for leaf in meta_data])
+        task_params = {k: v.to(device) for k, v in task_params.items()}
     S, M, N, d = meta_data.X.shape
     dtype = meta_data.X.dtype
     E = cfg.n_evaluations
@@ -261,28 +275,32 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
     # ---- meta-fit: (study, task) folded into one task axis ----------------
     t0 = time.perf_counter()
     counts = [inverse_mll.kernel_launches()]
-    flat = m.TaskData(*[leaf.reshape((T,) + leaf.shape[2:])
-                        for leaf in meta_data])
-    warm = gp.init_params(source_cfg, d, dtype, device, batch_shape=(T,))
-    sampled = gp.sample_params(source_cfg, generator, d, dtype,
-                               batch_shape=(T, meta_fit_restarts))
-    init_stack = fit_lib.stack_restarts(
-        warm, fit_lib.tree_map(lambda leaf: leaf.to(device), sampled), 1)
-    csz = T // meta_fit_chunks
-    parts = []
-    for c in range(meta_fit_chunks):
-        sl = slice(c * csz, (c + 1) * csz)
-        parts.append(m.meta_fit_task_stack(
-            m.TaskData(*[leaf[sl] for leaf in flat]), source_cfg,
-            num_steps=meta_fit_steps, mll_method=cfg.mll_method,
-            init_stack=fit_lib.tree_map(lambda leaf: leaf[sl], init_stack),
-            route_blocked=cfg.route_blocked))
-    flat_stack = fit_lib.tree_map(lambda *ls: torch.cat(ls), *parts)
-    stack = fit_lib.tree_map(lambda leaf: leaf.reshape((S, M) + leaf.shape[1:]),
-                             flat_stack)
-    _sync(device)
+    with GLOBAL_TIMER("campaign_meta_fit", device):
+        flat = m.TaskData(*[leaf.reshape((T,) + leaf.shape[2:])
+                            for leaf in meta_data])
+        warm = gp.init_params(source_cfg, d, dtype, device, batch_shape=(T,))
+        sampled = gp.sample_params(source_cfg, generator, d, dtype,
+                                   batch_shape=(T, meta_fit_restarts))
+        init_stack = fit_lib.stack_restarts(
+            warm, fit_lib.tree_map(lambda leaf: leaf.to(device), sampled), 1)
+        csz = T // meta_fit_chunks
+        parts = []
+        for c in range(meta_fit_chunks):
+            sl = slice(c * csz, (c + 1) * csz)
+            parts.append(m.meta_fit_task_stack(
+                m.TaskData(*[leaf[sl] for leaf in flat]), source_cfg,
+                num_steps=meta_fit_steps, mll_method=cfg.mll_method,
+                init_stack=fit_lib.tree_map(lambda leaf: leaf[sl],
+                                            init_stack),
+                route_blocked=cfg.route_blocked,
+                sweep_variant=cfg.sweep_variant))
+        flat_stack = fit_lib.tree_map(lambda *ls: torch.cat(ls), *parts)
+        stack = fit_lib.tree_map(
+            lambda leaf: leaf.reshape((S, M) + leaf.shape[1:]), flat_stack)
     meta_fit_seconds = time.perf_counter() - t0
     counts.append(inverse_mll.kernel_launches())
+    nonfinite = ~(torch.isfinite(flat_stack.chol).flatten(1).all(-1)
+                  & torch.isfinite(flat_stack.alpha).all(-1))
 
     # ---- BO loop ----------------------------------------------------------
     Xbuf = torch.zeros((S, E, d), dtype=dtype, device=device)
@@ -292,22 +310,25 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
     params = m.init_target_params(target_cfg, M, d, dtype, device,
                                   batch_shape=(S,))
     iteration_seconds = []
-    for i in range(E):
-        t0 = time.perf_counter()
-        draws = iteration_draws(generator, cfg, target_cfg, S, M, d, dtype,
-                                device)
-        Xbuf, ybuf, yclean, mask, params = run_iteration(
-            benchmark_fn, stack, task_params, Xbuf, ybuf, yclean, mask,
-            params, draws, i, source_cfg, target_cfg, cfg)
-        _sync(device)
-        iteration_seconds.append(time.perf_counter() - t0)
-        counts.append(inverse_mll.kernel_launches())
+    with GLOBAL_TIMER("campaign_bo_loop", device):
+        for i in range(E):
+            t0 = time.perf_counter()
+            with GLOBAL_TIMER("campaign_iteration", device):
+                with GLOBAL_TIMER("iteration_draws", device):
+                    draws = iteration_draws(generator, cfg, target_cfg, S, M,
+                                            d, dtype, device)
+                Xbuf, ybuf, yclean, mask, params = run_iteration(
+                    benchmark_fn, stack, task_params, Xbuf, ybuf, yclean,
+                    mask, params, draws, i, source_cfg, target_cfg, cfg)
+            iteration_seconds.append(time.perf_counter() - t0)
+            counts.append(inverse_mll.kernel_launches())
     return CampaignResult(X=Xbuf, y=ybuf, y_clean=yclean,
                           meta_fit_seconds=meta_fit_seconds,
                           iteration_seconds=iteration_seconds,
                           launches={k: [b[k] - a[k] for a, b in
                                         zip(counts, counts[1:])]
-                                    for k in counts[0]})
+                                    for k in counts[0]},
+                          nonfinite_source_tasks=int(nonfinite.sum()))
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

@@ -1,0 +1,79 @@
+"""Profiling hooks (``scamlgp_tpu/utils/profiling.py``).
+
+- ``trace(dir)``: context manager around ``torch.profiler`` that records
+  the host and, where there is one, the card, and writes a Chrome trace
+  (``trace.json``) into ``dir``; it yields the profiler, whose
+  ``key_averages()`` sums the time by operator and kernel.
+- ``Timer`` / ``GLOBAL_TIMER``: an accumulating wall-clock registry of named
+  phases, reportable as one dict.  A phase given a CUDA device synchronizes
+  it before its clock is read, where the reference blocks on its results,
+  so a phase's time includes the device work that it queued.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import time
+from collections import defaultdict
+from typing import Dict
+
+import torch
+
+logger = logging.getLogger("scamlgp_tpu_torch")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a trace: ``with profiling.trace('prof') as prof: ...``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` where it is a CUDA device."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Timer:
+    """Accumulating wall-clock timer keyed by phase name."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, device=None):
+        """Time the block as phase ``name``; with a CUDA ``device``, the
+        device is synchronized before the clock is read at the end."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            synchronize(device)
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {k: {"total_s": self.totals[k], "count": self.counts[k],
+                    "mean_s": self.totals[k] / max(self.counts[k], 1)}
+                for k in sorted(self.totals)}
+
+    def log(self, level: int = logging.INFO) -> None:
+        logger.log(level, "phase timings: %s", json.dumps(self.report()))
+
+
+#: Process-global default timer (the campaign records its stages here).
+GLOBAL_TIMER = Timer()

@@ -3,8 +3,9 @@ with the JAX package's committed regret rows.
 
     python -m scamlgp_tpu_torch.validate [--benchmark Branin] [--tasks 8]
         [--points 32] [--sigma 1.0] [--studies 128] [--evals 40]
-        [--mll-method sweep] [--route-blocked] [--optimum-method shgo]
-        [--seed 0] [--out regrets.npy] [--device cuda]
+        [--mll-method sweep] [--route-blocked] [--sweep-variant select]
+        [--fmad-contract] [--optimum-method shgo] [--seed 0]
+        [--out regrets.npy] [--compare curve.npy] [--device cuda]
 
 The defaults are the Branin T8 run of the committed curve
 ``docs/branin_t8_p32_n1_regrets_tpu_128studies.npy``: 8 meta-tasks x 32
@@ -13,9 +14,15 @@ points, noise 1.0.  The points-per-task ablation rows are
 ``docs/branin_ablation_points_n256_tpu.json``) and ``--benchmark
 Hartmann6D --points 512 --sigma 0.1 --studies 16 --evals 80
 --route-blocked --optimum-method device`` (``docs/hm6_ablation_points_tpu.json``).
-Always the CampaignConfig defaults and float32.  Prints one JSON line with
-the median simple regret per iteration, the timings, each kernel's
-launches, and the card's name and power limit.
+The paper's main Hartmann6D cell, T8 N_m=128 (committed curve
+``docs/hm6_t8_p128_n01_regrets_tpu_128studies.npy``), is ``--benchmark
+Hartmann6D --points 128 --sigma 0.1 --evals 80 --optimum-method device``;
+``--sweep-variant fused`` runs it as the reference's
+``SCAMLGP_SWEEP_STEP=fused``.  Always the CampaignConfig defaults and
+float32.  Prints one JSON line with the median simple regret per
+iteration, the timings (and the campaign's stages from
+``utils.profiling.GLOBAL_TIMER``), each kernel's launches, and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -33,11 +40,14 @@ from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
 from scamlgp_tpu_torch.config import resolve_device
+from scamlgp_tpu_torch.ops import cuda_build
+from scamlgp_tpu_torch.ops.sweep import VARIANTS
 from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
     run_campaign,
     simple_regret,
 )
+from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
 def _card(device: torch.device) -> str:
@@ -47,6 +57,28 @@ def _card(device: torch.device) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def compare(ref: np.ndarray, reg: np.ndarray, seed: int = 0,
+            draws: int = 2000) -> dict:
+    """A committed regret curve ``ref`` (S_ref, E) beside a run's ``reg``
+    (S, E): the reference's median final and average cumulative regret
+    (mean +- SEM over studies), and the 2.5 / 50 / 97.5 percentiles of the
+    median final regret over ``draws`` random S-study subsets of the
+    reference: the spread that S studies of the reference itself give."""
+    S = reg.shape[0]
+    cum = ref.mean(axis=1)
+    rng = np.random.default_rng(seed)
+    sub = [np.median(ref[rng.choice(len(ref), S, replace=False), -1])
+           for _ in range(draws)] if S <= len(ref) else []
+    return {"ref_studies": int(ref.shape[0]),
+            "ref_median_final_regret": float(np.median(ref[:, -1])),
+            "ref_mean_cumulative_regret": float(cum.mean()),
+            "ref_avg_cum_regret_sem": float(cum.std(ddof=1)
+                                            / np.sqrt(len(cum))),
+            "ref_median_final_subsets_2.5_50_97.5":
+                [float(v) for v in np.percentile(sub, [2.5, 50, 97.5])]
+                if sub else None}
 
 
 def main(argv=None) -> dict:
@@ -62,14 +94,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--route-blocked", action="store_true",
                     help="let 192 <= N <= 1024 take the blocked-Cholesky "
                          "kernels (with --mll-method sweep)")
+    ap.add_argument("--sweep-variant", default="select", choices=VARIANTS,
+                    help="the sweep kernel's step scheme (with --mll-method "
+                         "sweep)")
+    ap.add_argument("--fmad-contract", action="store_true",
+                    help="build the sweep kernels with FMA contraction "
+                         "(nvcc's default) in place of the port's "
+                         "-fmad=false, to compare the two builds")
     ap.add_argument("--optimum-method", default="shgo",
                     choices=["shgo", "device"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="save the (S, E) regrets")
+    ap.add_argument("--compare", default=None,
+                    help="a committed (S_ref, E) regret curve (.npy) to "
+                         "report beside the run")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.fmad_contract:
+        for name in ("sweep_inverse", "sweep_variants"):
+            cuda_build.SOURCE_FLAGS[name] = ("-fmad=true",)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -80,7 +125,9 @@ def main(argv=None) -> dict:
     setup_s = time.perf_counter() - t0
     cfg = CampaignConfig(n_evaluations=args.evals, noise_std=args.sigma,
                          mll_method=args.mll_method,
-                         route_blocked=args.route_blocked)
+                         route_blocked=args.route_blocked,
+                         sweep_variant=args.sweep_variant)
+    GLOBAL_TIMER.reset()
     t0 = time.perf_counter()
     res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device)
     run_s = time.perf_counter() - t0
@@ -93,13 +140,20 @@ def main(argv=None) -> dict:
         "studies": args.studies, "evals": args.evals,
         "dtype": "float32", "mll_method": args.mll_method,
         "route_blocked": args.route_blocked,
+        "sweep_variant": args.sweep_variant,
+        "fmad_contract": args.fmad_contract,
         "optimum_method": args.optimum_method, "device": str(device),
         "card": _card(device),
         "setup_s": setup_s, "run_s": run_s,
         "meta_fit_s": res.meta_fit_seconds,
+        "nonfinite_source_tasks": res.nonfinite_source_tasks,
         "mean_iteration_s": float(np.mean(res.iteration_seconds)),
+        "iteration_s": res.iteration_seconds,
+        "stages": GLOBAL_TIMER.report(),
         "launches": {k: sum(v) for k, v in res.launches.items()},
         "launches_meta_fit": {k: v[0] for k, v in res.launches.items()},
+        "launches_per_iteration": {k: v[1:] for k, v in res.launches.items()
+                                   if sum(v[1:])},
         "median_regret": [float(v) for v in med],
         "median_final_regret": float(med[-1]),
         "mean_final_regret": float(reg[:, -1].mean()),
@@ -107,6 +161,8 @@ def main(argv=None) -> dict:
         "avg_cum_regret_sem": float(cum.std(ddof=1) / np.sqrt(len(cum)))
         if len(cum) > 1 else None,
     }
+    if args.compare:
+        out["compare"] = compare(np.load(args.compare), reg, args.seed)
     print(json.dumps(out), flush=True)
     if args.out:
         np.save(args.out, reg)

@@ -116,11 +116,12 @@ def iteration(inputs):
                 raw=raw, warm=warm, ref=ref)
 
 
-def _jax_iteration(jstack, warm, Xbuf, ybuf, mask, keys, raw):
+def _jax_iteration(jstack, warm, Xbuf, ybuf, mask, keys, raw,
+                   mll_method="chol"):
     """The reference's refit and acquisition state, vmapped over studies as
     its campaign runs them, and its ascent."""
     scfg, tcfg = jgp.source_gp_config(), jgp.target_gp_config()
-    cfg = jc.CampaignConfig(**CFG)
+    cfg = jc.CampaignConfig(mll_method=mll_method, **CFG)
     om, os_ = jax.vmap(jc._out_transform)(jstack, ybuf, mask)
     # the fit draws its restarts from the keys exactly as the fixture does
     params = jax.vmap(lambda st, w, xb, yb, mk, o, s, k: jc._fit_target(

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (the sweep, and both variants of the blocked Cholesky), and the
-campaign on the card against the campaign on the CPU.
+version (the sweep in its four step schemes, and both variants of the
+blocked Cholesky), and the campaign on the card against the campaign on the
+CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so it also runs where those are
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from scamlgp_tpu_torch.benchmarking.benchmarks import Branin
+from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
@@ -41,10 +42,10 @@ def _spd_batch(rng, b, n, jitter=0.5):
 def test_sweep_kernel_matches_plain(cuda, n, dtype):
     A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 64, n),
                         dtype=dtype, device=cuda)
-    before = sweep.sweep_inverse.launches
+    before = sweep.sweep_inverse.launches["select"]
     inv_k, ld_k = sweep.sweep_inverse(A)
     torch.cuda.synchronize()
-    assert sweep.sweep_inverse.launches == before + 1
+    assert sweep.sweep_inverse.launches["select"] == before + 1
     inv_p, ld_p = sweep.sweep_inverse_reference(A)
     tol_inv, tol_ld = ((1e-4, 1e-5) if dtype == torch.float32
                        else (1e-11, 1e-12))
@@ -64,6 +65,96 @@ def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         sweep.sweep_inverse(torch.eye(4, device=cuda)[None].transpose(1, 2)
                             .expand(2, 4, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant,n", [
+    ("fused", 1), ("fused", 9), ("fused", 32), ("fused", 41), ("fused", 128),
+    ("pair", 2), ("pair", 8), ("pair", 40), ("pair", 128),
+    ("blocked", 32), ("blocked", 64), ("blocked", 96), ("blocked", 128)])
+def test_sweep_variant_kernel_matches_plain(cuda, variant, n, dtype):
+    """Each step scheme's kernel against its own plain version, at the N it
+    takes (odd and even for fused, even for pair, N % 32 == 0 for blocked),
+    with the select kernel's tolerances; the launch goes to the scheme's
+    own count."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 64, n),
+                        dtype=dtype, device=cuda)
+    before = dict(sweep.sweep_inverse.launches)
+    inv_k, ld_k = sweep.sweep_inverse(A, variant)
+    torch.cuda.synchronize()
+    after = sweep.sweep_inverse.launches
+    assert {v: after[v] - before[v] for v in after} == {
+        v: int(v == variant) for v in after}
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, variant)
+    tol_inv, tol_ld = ((1e-4, 1e-5) if dtype == torch.float32
+                       else (1e-11, 1e-12))
+    assert (inv_k - inv_p).abs().max().item() <= tol_inv * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= tol_ld
+
+
+@pytest.mark.parametrize("variant,n", [("pair", 9), ("blocked", 40)])
+def test_sweep_variant_the_shape_refuses_runs_select(cuda, variant, n):
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 8, n),
+                        device=cuda)
+    before = dict(sweep.sweep_inverse.launches)
+    inv, _ = sweep.sweep_inverse(A, variant)
+    after = sweep.sweep_inverse.launches
+    assert after["select"] == before["select"] + 1
+    assert after[variant] == before[variant]
+    inv_p, _ = sweep.sweep_inverse_reference(A)
+    assert (inv - inv_p).abs().max().item() <= 1e-4 * inv_p.abs().max().item()
+
+
+@pytest.mark.parametrize("variant", ["fused", "pair", "blocked"])
+def test_sweep_variant_rejects_what_its_kernel_does_not_take(cuda, variant):
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep.sweep_inverse(torch.eye(160, device=cuda).expand(2, 160, 160)
+                            .contiguous(), variant)
+    with pytest.raises(TypeError):
+        sweep.sweep_inverse(torch.eye(32, device=cuda,
+                                      dtype=torch.float16)[None], variant)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.sweep_inverse(torch.eye(32, device=cuda)[None].transpose(1, 2)
+                            .expand(2, 32, 32), variant)
+
+
+@pytest.mark.parametrize("variant", sweep.VARIANTS)
+def test_sweep_kernel_of_indefinite_matrix_gives_nan_logdet(cuda, variant):
+    A = torch.eye(32, dtype=torch.float64)
+    A[0, 1] = A[1, 0] = 2.0
+    _, ld = sweep.sweep_inverse(A[None].to(cuda), variant)
+    assert torch.isnan(ld).all()
+
+
+def test_kernel_launches_names_every_kernel(cuda):
+    inverse_mll.reset_kernel_launches()
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(3), 4, 64),
+                        device=cuda)
+    for variant in sweep.VARIANTS:
+        sweep.sweep_inverse(A, variant)
+    blocked_chol.blocked_chol_inverse(A, "global")
+    assert inverse_mll.kernel_launches() == {
+        "sweep_inverse": 1, "sweep_inverse_fused": 1,
+        "sweep_inverse_pair": 1, "sweep_inverse_blocked": 1,
+        "blocked_chol_inverse_smem": 0, "blocked_chol_inverse_global": 1}
+
+
+@pytest.mark.parametrize("variant", sweep.VARIANTS)
+def test_sweep_inverse_gradient_on_the_card(cuda, variant):
+    """``mll_via_sweep`` (``SweepInverse``'s analytic VJP) on the card
+    against the CPU, float64."""
+    rng = np.random.default_rng(4)
+    A = torch.as_tensor(_spd_batch(rng, 6, 32), dtype=torch.float64)
+    y = torch.as_tensor(rng.normal(size=(6, 32)))
+    out = []
+    for dev in ("cpu", cuda):
+        Ad = A.to(dev).requires_grad_(True)
+        v = sweep.mll_via_sweep(Ad, y.to(dev), variant=variant).sum()
+        out.append([t.cpu() for t in (v, *torch.autograd.grad(v, (Ad,)))])
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-11)
 
 
 @pytest.mark.parametrize("variant", blocked_chol.VARIANTS)
@@ -148,12 +239,12 @@ def test_campaign_on_the_card_matches_the_cpu(cuda):
                          acq_raw_samples=32, acq_topk=3, acq_steps=8)
     xs = []
     for dev in ("cpu", cuda):
-        sweep.sweep_inverse.launches = 0
+        inverse_mll.reset_kernel_launches()
         res = run_campaign(fn, tp, md, seed=0, cfg=cfg, meta_fit_restarts=2,
                            meta_fit_steps=12, device=dev)
         xs.append(res.X.cpu())
     counts = res.launches["sweep_inverse"]
-    assert sweep.sweep_inverse.launches == sum(counts) > 0
+    assert sweep.sweep_inverse.launches["select"] == sum(counts) > 0
     assert len(counts) == 3
     torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
 
@@ -175,4 +266,27 @@ def test_blocked_route_campaign_on_the_card_matches_the_cpu(cuda):
         xs.append(res.X.cpu())
     assert res.launches["blocked_chol_inverse_smem"][0] > 0
     assert sum(res.launches["blocked_chol_inverse_global"]) == 0
+    torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("variant", ["fused", "pair", "blocked"])
+def test_sweep_variant_campaign_on_the_card_matches_the_cpu(cuda, variant):
+    """A tiny float64 Hartmann6D campaign (N_m = 32) with
+    ``sweep_variant``: the meta-fit's systems take the scheme's kernel on
+    the card and its plain version on the CPU, and the two propose the same
+    points."""
+    fn, tp, md, _ = campaign_inputs_from_benchmark(
+        Hartmann6D, [32] * 2, range(2), noise_std=0.1, dtype=torch.float64,
+        device="cpu", optimum_method="device")
+    cfg = CampaignConfig(n_evaluations=2, mll_method="sweep",
+                         sweep_variant=variant, fit_steps=10,
+                         acq_raw_samples=32, acq_topk=3, acq_steps=8)
+    xs = []
+    for dev in ("cpu", cuda):
+        res = run_campaign(fn, tp, md, seed=0, cfg=cfg, meta_fit_restarts=1,
+                           meta_fit_steps=8, device=dev)
+        xs.append(res.X.cpu())
+    name = f"sweep_inverse_{variant}"
+    assert res.launches[name][0] > 0
+    assert all(c[0] == 0 for k, c in res.launches.items() if k != name)
     torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)

@@ -59,6 +59,21 @@ def test_port_and_chip_smoke_import_without_jax():
     assert n >= 30
 
 
+def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
+    """The import guard above walks the package; the kernel N-scaling bench
+    and the profiling hooks are among the modules that it imports."""
+    import pkgutil
+
+    import scamlgp_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        scamlgp_tpu_torch.__path__, "scamlgp_tpu_torch.")}
+    assert {"scamlgp_tpu_torch.bench_sweep_n",
+            "scamlgp_tpu_torch.utils.profiling",
+            "scamlgp_tpu_torch.ops.sweep",
+            "scamlgp_tpu_torch.validate"} <= names
+
+
 def test_chip_smoke_fails_without_cuda():
     """Where torch sees no CUDA device the script exits non-zero with the
     device message and prints no result line."""
