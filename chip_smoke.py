@@ -31,11 +31,14 @@ Phases, each printing one JSON line with its own seconds:
      (1024, 128, 128) systems and the target fits through the ``fused``
      sweep kernel;
 
-   each cut in studies and evaluations only.  On the slices with N <= 128
+   each cut in studies and evaluations only; a slice fails if a source GP
+   is left with a non-finite factor after the meta-fit (a task whose
+   factor fails on the inverse route is fitted again on the Cholesky
+   route, ``models.scamlgp.refit_nonfinite_tasks``, and its time is the
+   ``meta_fit_refit_chol`` stage).  On the slices with N <= 128
    the MLL of the meta-fit's own float32 systems is held against float64
-   for every sweep scheme, built as the port builds it (without FMA
-   contraction) and with ``-fmad=true``, and for its plain version: a
-   kernel farther from float64 than twice its plain version fails;
+   for every sweep scheme's kernel and its plain version: a kernel farther
+   from float64 than twice its plain version fails;
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -101,10 +104,6 @@ SLICES = {
 META_RESTARTS, META_STEPS = 3, 50
 #: the bench phase's shape and rounds (every variant of the bench)
 BENCH_SHAPE, BENCH_ROUNDS = (4096, 128), 5
-#: the second build of the sweep kernels, with FMA contraction (nvcc's
-#: default), for the rounding comparison
-FMAD_ON = ("-fmad=true",)
-SWEEP_SOURCES = ("sweep_inverse", "sweep_variants")
 
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
 # tensor cores.
@@ -190,14 +189,11 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    builds = ([(n, None) for n in cuda_build.SOURCES]
-              + [(n, FMAD_ON) for n in SWEEP_SOURCES])
-    cold = [f"{n}{''.join(' ' + f for f in flags or ())}"
-            for n, flags in builds
-            if not cuda_build.library_path(n, flags).exists()]
-    cuda_build.build_all(builds)
-    for name, flags in builds:
-        cuda_build.load(name, flags)
+    cold = [n for n in cuda_build.SOURCES
+            if not cuda_build.library_path(n).exists()]
+    cuda_build.build_all()
+    for name in cuda_build.SOURCES:
+        cuda_build.load(name)
     emit("build", time.perf_counter() - t0, sources=list(cuda_build.SOURCES),
          built_cold=cold)
 
@@ -210,8 +206,6 @@ def swept(variant):
     return (lambda A: sweep.sweep_inverse(A, variant),
             lambda A: sweep.sweep_inverse_reference(A, variant))
 
-
-SWEEP_VARIANT_OF = {sweep.kernel_name(v): v for v in sweep.VARIANTS}
 
 # name -> (kernel wrapper, plain version)
 KERNELS = {
@@ -249,16 +243,10 @@ def time_kernel(name, A, reps, plain_reps):
     kernel, plain = KERNELS[name]
     B, N, _ = A.shape
     bound_ms, bound_by = bound(B, N, A.dtype)
-    out = dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
-               plain_ms=time_ms(lambda: plain(A), plain_reps),
-               library_ms=time_ms(lambda: library_inverse(A), 10),
-               bound_ms=bound_ms, bound_by=bound_by)
-    variant = SWEEP_VARIANT_OF.get(name)
-    if variant is not None:
-        # the same kernel built with FMA contraction, in the same call
-        out["ms_fmad_on"] = time_ms(
-            lambda: sweep._launch(A, variant, FMAD_ON), reps)
-    return out
+    return dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
+                plain_ms=time_ms(lambda: plain(A), plain_reps),
+                library_ms=time_ms(lambda: library_inverse(A), 10),
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernel():
@@ -360,10 +348,9 @@ def mll_plain(A, y, n_active, variant="select"):
 
 def rounding(A, y, n_active, truth, key):
     """Each sweep scheme's float32 MLL on these systems against ``truth``
-    (float64): the kernel as the port builds it, the kernel built with FMA
-    contraction, and the plain version; each as [max, median] over the
-    systems of the relative error (|error| / max(|truth|, 1)).  Fails if
-    the kernel's max is above twice the plain version's."""
+    (float64): the kernel and its plain version, each as [max, median] over
+    the systems of the relative error (|error| / max(|truth|, 1)).  Fails
+    if the kernel's max is above twice the plain version's."""
     def rel(v):
         r = (v.double() - truth).abs() / truth.abs().clamp_min(1.0)
         return [r.max().item(), r.median().item()]
@@ -373,8 +360,6 @@ def rounding(A, y, n_active, truth, key):
         if sweep.resolve_variant(A.shape[-1], v) != v:
             continue
         out[v] = {"kernel": rel(mll_of(*sweep._launch(A, v), y, n_active)),
-                  "kernel_fmad_on": rel(mll_of(
-                      *sweep._launch(A, v, FMAD_ON), y, n_active)),
                   "plain": rel(mll_plain(A, y, n_active, v))}
         check(out[v]["kernel"][0] <= 2.0 * out[v]["plain"][0],
               f"{key}: the {v} kernel's MLL is {out[v]['kernel'][0]} from "
@@ -421,6 +406,10 @@ def phase_slice(key):
     check(sum(launches.values()) == sum(sum(c) for c in
                                         res.launches.values()),
           f"{key}: launch counts of the run and of the result differ")
+    # a source GP left with a non-finite factor would poison its study
+    check(res.nonfinite_source_tasks == 0,
+          f"{key}: {res.nonfinite_source_tasks} source GPs with a "
+          "non-finite factor")
     X = res.X
     check(X.shape == (S, sl["evals"], d), f"proposal shape {tuple(X.shape)}")
     check(bool(torch.isfinite(X).all()), f"{key}: non-finite proposal")

@@ -24,6 +24,7 @@ from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.ops import linalg
 from scamlgp_tpu_torch.utils.constraints import inv_softplus, softplus
+from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 from scamlgp_tpu_torch.utils.priors import Gamma
 from scamlgp_tpu_torch.utils.standardize import fit_standardize
 
@@ -93,7 +94,9 @@ def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
     followed by ``num_restarts`` prior draws from ``generator``; pass
     ``init_stack`` (leaves with leading (T, num_restarts + 1) axes) to use
     given draws instead.  ``mll_method``, ``route_blocked`` and
-    ``sweep_variant`` choose the objective's MLL route (``gp.mll``).
+    ``sweep_variant`` choose the objective's MLL route (``gp.mll``); on the
+    inverse route a task whose cached factor comes out non-finite is fitted
+    again on the Cholesky route (``refit_nonfinite_tasks``).
     """
     T, _, d = data.X.shape
     dtype, dev = data.X.dtype, data.X.device
@@ -113,7 +116,47 @@ def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
 
     res = fit_lib.fit_map_restarts(objective, init_stack, num_steps=num_steps,
                                    batch_ndim=1)
-    return finalize_source_stack(data, cfg, res.params)
+    stack = finalize_source_stack(data, cfg, res.params)
+    if mll_method == "chol":
+        return stack
+    return refit_nonfinite_tasks(stack, cfg, init_stack, num_steps)
+
+
+def refit_nonfinite_tasks(stack: SourceStack, cfg: gp.GPConfig, init_stack,
+                          num_steps: int = 60) -> SourceStack:
+    """Fit again, on the Cholesky route and from the same restarts
+    ``init_stack`` (leaves with leading (T, R) axes), every task of
+    ``stack`` (leading task axis T) whose cached factor or alpha is not
+    finite; the other tasks are returned as they are.
+
+    The inverse routes' float32 MLL can stay finite, and large, at
+    hyperparameters where the system is not positive definite in float32
+    (on an H100, the seed-0 Branin N_m=32 meta-fit stopped at a noise of
+    4e-8, ``tests/test_torch_source_refit.py``).  The Cholesky in
+    ``finalize_source_stack`` then fails, and the NaN factor makes every
+    prediction of the task's study NaN, padded rows included.  The
+    Cholesky route's objective is NaN at such points, so its fit ends
+    where the factor exists.  The JAX package keeps the NaN factor."""
+    bad = ~(torch.isfinite(stack.chol).flatten(1).all(-1)
+            & torch.isfinite(stack.alpha).all(-1))
+    if not bool(bad.any()):
+        return stack
+    with GLOBAL_TIMER("meta_fit_refit_chol", stack.chol.device):
+        refit = meta_fit_task_stack(
+            TaskData(*[leaf[bad] for leaf in stack.data]), cfg,
+            num_steps=num_steps, mll_method="chol",
+            init_stack=fit_lib.tree_map(lambda leaf: leaf[bad], init_stack))
+
+    def put(full, part):
+        full = full.clone()
+        full[bad] = part
+        return full
+
+    return SourceStack(data=stack.data,
+                       params=fit_lib.tree_map(put, stack.params,
+                                               refit.params),
+                       chol=put(stack.chol, refit.chol),
+                       alpha=put(stack.alpha, refit.alpha))
 
 
 def finalize_source_stack(data: TaskData, cfg: gp.GPConfig,

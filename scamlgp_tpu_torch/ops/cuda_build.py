@@ -8,11 +8,7 @@ source and the flags, so an edited source is rebuilt.  Nothing is built or
 loaded when this module is imported: ``load`` builds at first use, and
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
 
-A source is built with ``NVCC_FLAGS`` and its own ``SOURCE_FLAGS``;
-``flags`` given to ``library_path``, ``build_all`` or ``load`` replace the
-latter, for a second build beside the port's (``chip_smoke.py`` builds the
-sweep kernels with ``-fmad=true`` as well, to measure what FMA contraction
-does to their rounding); the port's wrappers load the port's build.
+A source is built with ``NVCC_FLAGS`` and its own ``SOURCE_FLAGS``.
 """
 
 from __future__ import annotations
@@ -52,35 +48,30 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
-def _flags(name: str, flags=None) -> tuple:
-    return NVCC_FLAGS + tuple(SOURCE_FLAGS.get(name, ()) if flags is None
-                              else flags)
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
-def library_path(name: str, flags=None) -> Path:
+def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(_flags(name, flags)).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(builds=None) -> list:
-    """Compile each (name, flags) of ``builds`` (default: every ``SOURCES``
-    name with its own flags, ``flags=None``) whose library is not built
-    yet, one ``nvcc`` each, all started together.  Returns the libraries'
-    paths in the order of ``builds``."""
-    builds = ([(n, None) for n in SOURCES] if builds is None
-              else list(builds))
-    outs = [library_path(n, f) for n, f in builds]
+def build_all(names=SOURCES) -> list:
+    """Compile each source of ``names`` whose library is not built yet, one
+    ``nvcc`` each, all started together.  Returns the libraries' paths in
+    the order of ``names``."""
+    outs = [library_path(n) for n in names]
     jobs = []
-    for (name, flags), out in zip(builds, outs):
+    for name, out in zip(names, outs):
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(name, flags), "-o", tmp,
+            [_nvcc(), *_flags(name), "-o", tmp,
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
@@ -99,7 +90,6 @@ def build_all(builds=None) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, flags=None) -> ctypes.CDLL:
-    """The kernel library of ``csrc/<name>.cu``, built at first use (with
-    ``flags`` in place of the source's own ``SOURCE_FLAGS``)."""
-    return ctypes.CDLL(str(build_all([(name, flags)])[0]))
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library of ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(build_all([name])[0]))

@@ -220,13 +220,11 @@ _C_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(variant: str, dtype: torch.dtype, flags=None):
-    """The C entry point of ``variant``'s kernel in ``dtype``, from the
-    port's build of its source (or one with ``flags`` in place of the
-    source's own, ``cuda_build.load``), and the library's error-string
-    function."""
+def _kernel_fn(variant: str, dtype: torch.dtype):
+    """The C entry point of ``variant``'s kernel in ``dtype``, and the
+    library's error-string function."""
     source, prefix, err_name = _KERNELS[variant]
-    lib = cuda_build.load(source, flags)
+    lib = cuda_build.load(source)
     fn = getattr(lib, f"{prefix}_{'f32' if dtype == torch.float32 else 'f64'}")
     fn.argtypes = _C_ARGS
     fn.restype = ctypes.c_int
@@ -236,7 +234,7 @@ def _kernel_fn(variant: str, dtype: torch.dtype, flags=None):
     return fn, err
 
 
-def _launch(A: torch.Tensor, variant: str, flags=None):
+def _launch(A: torch.Tensor, variant: str):
     """Runs ``variant``'s kernel on a checked, contiguous CUDA batch;
     counts nothing (``sweep_inverse`` counts its own launches)."""
     B = A.shape[0]
@@ -244,7 +242,7 @@ def _launch(A: torch.Tensor, variant: str, flags=None):
     logdet = torch.empty(B, dtype=A.dtype, device=A.device)
     if B == 0:
         return inv, logdet
-    fn, err_string = _kernel_fn(variant, A.dtype, flags)
+    fn, err_string = _kernel_fn(variant, A.dtype)
     with torch.cuda.device(A.device):
         err = fn(A.data_ptr(), inv.data_ptr(), logdet.data_ptr(), B,
                  A.shape[-1], torch.cuda.current_stream().cuda_stream)

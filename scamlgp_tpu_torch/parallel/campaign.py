@@ -84,8 +84,9 @@ class CampaignResult(NamedTuple):
     #                          in each iteration (all 0 where no CUDA
     #                          tensor ran)
     nonfinite_source_tasks: int  # fitted source GPs whose cached factor
-    #                              or alpha is not finite (their study's
-    #                              predictions are then not finite either)
+    #                              or alpha is not finite after the
+    #                              meta-fit's Cholesky-route refit (their
+    #                              study's predictions are then not finite)
 
 
 class IterationDraws(NamedTuple):

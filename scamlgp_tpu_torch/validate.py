@@ -4,7 +4,7 @@ with the JAX package's committed regret rows.
     python -m scamlgp_tpu_torch.validate [--benchmark Branin] [--tasks 8]
         [--points 32] [--sigma 1.0] [--studies 128] [--evals 40]
         [--mll-method sweep] [--route-blocked] [--sweep-variant select]
-        [--fmad-contract] [--optimum-method shgo] [--seed 0]
+        [--optimum-method shgo] [--seed 0]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
 
 The defaults are the Branin T8 run of the committed curve
@@ -40,7 +40,6 @@ from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
 from scamlgp_tpu_torch.config import resolve_device
-from scamlgp_tpu_torch.ops import cuda_build
 from scamlgp_tpu_torch.ops.sweep import VARIANTS
 from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
@@ -97,10 +96,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--sweep-variant", default="select", choices=VARIANTS,
                     help="the sweep kernel's step scheme (with --mll-method "
                          "sweep)")
-    ap.add_argument("--fmad-contract", action="store_true",
-                    help="build the sweep kernels with FMA contraction "
-                         "(nvcc's default) in place of the port's "
-                         "-fmad=false, to compare the two builds")
     ap.add_argument("--optimum-method", default="shgo",
                     choices=["shgo", "device"])
     ap.add_argument("--seed", type=int, default=0)
@@ -112,9 +107,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.fmad_contract:
-        for name in ("sweep_inverse", "sweep_variants"):
-            cuda_build.SOURCE_FLAGS[name] = ("-fmad=true",)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -141,7 +133,6 @@ def main(argv=None) -> dict:
         "dtype": "float32", "mll_method": args.mll_method,
         "route_blocked": args.route_blocked,
         "sweep_variant": args.sweep_variant,
-        "fmad_contract": args.fmad_contract,
         "optimum_method": args.optimum_method, "device": str(device),
         "card": _card(device),
         "setup_s": setup_s, "run_s": run_s,
