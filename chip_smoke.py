@@ -15,6 +15,15 @@ Phases, each printing one JSON line with its own seconds:
    bound.  Kernels: the sweep inverse in its four step schemes (``select``,
    ``fused``, ``pair``, ``blocked``), and the blocked-Cholesky inverse in
    its two variants, ``smem`` and ``global``;
+3b. gram: the RBF Gram kernel (``ops/gram.py``) against its plain version
+   at (n, m, d) = (300, 200, 3), (2048, 2048, 6) and (4096, 1024, 2) in
+   float32 and float64 (atol 2e-5), its gradients against autograd of
+   ``kernels.rbf`` at (300, 200, 3) (rtol 1e-4), and its time at
+   (2048, 2048, 6) and (4096, 4096, 2) in float32 beside the plain
+   version, ``kernels.rbf`` (the RBF the port's models compute: an eager
+   expression of a few calls, not one library call) and the bytes
+   bound.  No path of the port launches this kernel, as none of the JAX
+   package does: its count in the kernels line is this phase's;
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
@@ -43,6 +52,18 @@ Phases, each printing one JSON line with its own seconds:
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
    kernels on the MAP objective's value and gradient;
+5b. driver: the paper's ``BRANIN_T8_P32_N1_SCAMLGP`` experiment (8 meta-tasks
+   x 32 points, d=2, noise 1.0, the driver's defaults) through
+   ``run_study`` and the sequential driver ``ScaMLGPBO`` on the card in
+   float64, cut to DRIVER_SEEDS studies x DRIVER_EVALS evaluations; one
+   line per study with the meta-fit seconds, each evaluation's refit and
+   acquisition seconds, the best-so-far regret and the peak device
+   memory.  It fails on a proposal that is not finite or leaves the search
+   space, on a source factor that is not finite, and where the final
+   model's ``predict`` at 64 Sobol points differs by more than rtol 1e-6
+   from ``scamlgp_posterior_diag`` on the same model moved to the CPU in
+   float64 (``convert.scamlgp_model``).  This path runs on the Cholesky
+   route, as the JAX package's does, and launches no kernel of the port;
 6. the card's nvidia-smi line, the kernels line, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -58,16 +79,23 @@ import time
 import numpy as np
 import torch
 
-from scamlgp_tpu_torch import bench_sweep_n
+from scamlgp_tpu_torch import bench_sweep_n, convert
 from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
+from scamlgp_tpu_torch.benchmarking.local_runner import run_study
+from scamlgp_tpu_torch.benchmarking.noise import HomoscedasticGaussianNoise
+from scamlgp_tpu_torch.bo import ScaMLGPBO
+from scamlgp_tpu_torch.bo.optimize import sobol_unit
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
 from scamlgp_tpu_torch.models import gp
+from scamlgp_tpu_torch.models import scamlgp as model_lib
 from scamlgp_tpu_torch.ops import (
     blocked_chol,
     cuda_build,
+    gram,
     inverse_mll,
+    kernels,
     linalg,
     sweep,
 )
@@ -77,6 +105,7 @@ from scamlgp_tpu_torch.parallel.campaign import (
     simple_regret,
 )
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
+from scamlgp_tpu_torch.validate import study_regret
 
 # Slices: S studies x E evaluations of each configuration (the model's
 # width, M=8 tasks x N_m points, d, the noise and the CampaignConfig
@@ -104,6 +133,14 @@ SLICES = {
 META_RESTARTS, META_STEPS = 3, 50
 #: the bench phase's shape and rounds (every variant of the bench)
 BENCH_SHAPE, BENCH_ROUNDS = (4096, 128), 5
+#: the gram phase's checked shapes (the JAX package's test shape first) and
+#: timed shapes, (n, m, d); the kernels line carries the first timed shape
+GRAM_CHECKS = ((300, 200, 3), (2048, 2048, 6), (4096, 1024, 2))
+GRAM_TIMED = ((2048, 2048, 6), (4096, 4096, 2))
+#: the driver phase: BRANIN_T8_P32_N1_SCAMLGP cut to these studies x
+#: evaluations (its width, 8 tasks x 32 points and the driver's defaults,
+#: is not cut)
+DRIVER_SEEDS, DRIVER_EVALS = (0, 1), 10
 
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
 # tensor cores.
@@ -165,6 +202,18 @@ def bound(B, N, dtype):
     t_ops = B * N ** 3 / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    inverse_mll.reset_kernel_launches()
+    gram.rbf_gram.launches = 0
+
+
+def launches_now() -> dict:
+    """Every kernel's launch count, by name."""
+    return {**inverse_mll.kernel_launches(),
+            "rbf_gram": gram.rbf_gram.launches}
 
 
 def phase_device():
@@ -383,12 +432,12 @@ def phase_slice(key):
     S, M, N, d = md.X.shape
 
     GLOBAL_TIMER.reset()
-    inverse_mll.reset_kernel_launches()
+    reset_launches()
     res = run_campaign(fn, tp, md, seed=0, cfg=cfg,
                        meta_fit_restarts=META_RESTARTS,
                        meta_fit_steps=META_STEPS, device="cuda")
     torch.cuda.synchronize()
-    launches = inverse_mll.kernel_launches()
+    launches = launches_now()
     stages = GLOBAL_TIMER.report()
 
     for name in sl["kernels"]:
@@ -469,11 +518,11 @@ def phase_bench():
     entry must be a number, and the pair and blocked variants must have
     run their kernels.  Returns the launches of every kernel."""
     t0 = time.perf_counter()
-    inverse_mll.reset_kernel_launches()
+    reset_launches()
     out = bench_sweep_n.run([BENCH_SHAPE], list(bench_sweep_n.VARIANTS),
                             device="cuda", rounds=BENCH_ROUNDS)
     torch.cuda.synchronize()
-    launches = inverse_mll.kernel_launches()
+    launches = launches_now()
     row = out["results"][0]
     for variant in bench_sweep_n.VARIANTS:
         check(isinstance(row[variant], float),
@@ -486,6 +535,157 @@ def phase_bench():
          B=row["B"], N=row["N"], rounds=BENCH_ROUNDS,
          evals_per_s={v: row[v] for v in bench_sweep_n.VARIANTS},
          launches_by_variant=row["launches"], launches=launches)
+    return launches
+
+
+def phase_gram():
+    """The RBF Gram kernel against its plain version and its gradient
+    against autograd of ``kernels.rbf``; then its times.  Returns the
+    kernels-line entries and the phase's launches of the kernel."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    gram.rbf_gram.launches = 0
+
+    def make(n, m, d, dtype, grad=False):
+        vals = (rng.uniform(size=(n, d)), rng.uniform(size=(m, d)),
+                rng.uniform(0.3, 1.0, size=d), np.asarray(1.3))
+        return [torch.tensor(v, dtype=dtype, device="cuda",
+                             requires_grad=grad) for v in vals]
+
+    max_err, checks = 0.0, []
+    for dtype in (torch.float32, torch.float64):
+        for n, m, d in GRAM_CHECKS:
+            args = make(n, m, d, dtype)
+            Kk = gram.rbf_gram(*args)
+            torch.cuda.synchronize()
+            err = (Kk - gram.rbf_gram_plain(*args)).abs().max().item()
+            checks.append({"n": n, "m": m, "d": d, "dtype": str(dtype),
+                           "max_abs_err": err})
+            check(Kk.dtype == dtype and Kk.shape == (n, m),
+                  f"rbf_gram ({n}, {m}, {d}) {dtype}: {Kk.dtype} "
+                  f"{tuple(Kk.shape)}")
+            check(err <= 2e-5, f"rbf_gram ({n}, {m}, {d}) {dtype}: {err}")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        vals = make(*GRAM_CHECKS[0], dtype, grad=True)
+        refs = [v.detach().clone().requires_grad_(True) for v in vals]
+        cot = torch.randn((GRAM_CHECKS[0][0], GRAM_CHECKS[0][1]),
+                          dtype=dtype, device="cuda")
+        gk = torch.autograd.grad(gram.rbf_gram(*vals), vals, cot)
+        gr = torch.autograd.grad(kernels.rbf(*refs), refs, cot)
+        grad_err = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max()
+                       .item() for a, b in zip(gk, gr))
+        checks.append({"gradient": list(GRAM_CHECKS[0]),
+                       "dtype": str(dtype), "max_rel_err": grad_err})
+        check(grad_err <= 1e-4, f"rbf_gram gradient {dtype}: {grad_err}")
+
+    timed = []
+    for n, m, d in GRAM_TIMED:
+        x, z, ls, os_ = make(n, m, d, torch.float32)
+        t_bytes = ((n * d + m * d + d + 1) * 4 + n * m * 4) / HBM_BYTES_PER_S
+        # per output: 2d for the cross term, 2 for the norms' sum, 3 for the
+        # distance and the clamp, 2 for the scale and the exp's argument, 1
+        # exp
+        t_ops = n * m * (2 * d + 8) / PEAK_OPS[torch.float32]
+        timed.append(dict(
+            n=n, m=m, d=d,
+            ms=time_ms(lambda: gram.rbf_gram(x, z, ls, os_), 50),
+            plain_ms=time_ms(lambda: gram.rbf_gram_plain(x, z, ls, os_), 20),
+            library_ms=time_ms(lambda: kernels.rbf(x, z, ls, os_), 20),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        torch.cuda.empty_cache()
+    launches = gram.rbf_gram.launches
+    emit("gram", time.perf_counter() - t0, checks=checks, timed=timed,
+         launches=launches)
+    return {"max_abs_err": max_err, **timed[0]}, launches
+
+
+class TimedBO(ScaMLGPBO):
+    """``ScaMLGPBO`` that keeps itself and the driver stages' totals after
+    the meta-fit and after each report, so that each evaluation's refit
+    and acquisition seconds can be told apart."""
+
+    made = []
+
+    def __init__(self, search_space, objective, meta_data, **kwargs):
+        super().__init__(search_space, objective, meta_data, **kwargs)
+        self.marks = [dict(GLOBAL_TIMER.totals)]
+        TimedBO.made.append(self)
+
+    def report(self, evaluations):
+        super().report(evaluations)
+        self.marks.append(dict(GLOBAL_TIMER.totals))
+
+
+def phase_driver():
+    """BRANIN_T8_P32_N1_SCAMLGP through ``run_study`` on the card, one line
+    per study; returns the launches of every kernel in the phase."""
+    t0 = time.perf_counter()
+    reset_launches()
+    for seed in DRIVER_SEEDS:
+        ts = time.perf_counter()
+        GLOBAL_TIMER.reset()
+        TimedBO.made.clear()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_study(TimedBO, {}, Branin,
+                        {"n_data_per_task": [32] * 8}, DRIVER_EVALS, seed,
+                        HomoscedasticGaussianNoise({"loss": 1.0}))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        opt = TimedBO.made[0]
+        check(opt.device.type == "cuda" and opt.dtype == torch.float64,
+              f"driver seed {seed}: {opt.device} {opt.dtype}")
+        space = opt.search_space
+        for e in res["evaluations"]:
+            vec = space.to_numerical(e["configuration"])
+            check(bool(np.isfinite(vec).all()) and bool(
+                ((vec >= 0) & (vec <= 1)).all())
+                and space.check_validity(e["configuration"]),
+                f"driver seed {seed}: proposal {e['configuration']}")
+        src = opt.source_gps
+        check(bool(torch.isfinite(src.chol).all())
+              and bool(torch.isfinite(src.alpha).all()),
+              f"driver seed {seed}: a source factor is not finite")
+        # the final model's predict on the card against the joint posterior
+        # of the same model moved to the CPU in float64
+        Xq = sobol_unit(seed, 64, len(space), torch.float64)
+        configs = [space.from_numerical(v) for v in Xq.numpy()]
+        mean, std = opt.predict(configs)
+        cpu = convert.scamlgp_model(convert.to_numpy_dict(opt.model),
+                                    torch.float64, "cpu")
+        Xc = torch.as_tensor(np.stack([space.to_numerical(c)
+                                       for c in configs]))
+        cmean, cvar = model_lib.scamlgp_posterior_diag(
+            cpu, opt.source_cfg, opt.target_cfg, Xc)
+        cmean, cstd = cmean.numpy(), np.sqrt(cvar.numpy())
+        rel = max(float(np.max(np.abs(mean - cmean)
+                               / np.maximum(np.abs(cmean), 1e-12))),
+                  float(np.max(np.abs(std - cstd)
+                               / np.maximum(np.abs(cstd), 1e-12))))
+        check(bool(np.isfinite(mean).all()) and rel <= 1e-6,
+              f"driver seed {seed}: predict on the card is {rel} from the "
+              "CPU's posterior")
+
+        def per_eval(stage):
+            tot = [m.get(stage, 0.0) for m in opt.marks]
+            return [b - a for a, b in zip(tot, tot[1:])]
+
+        regret = study_regret(res)
+        check(bool(np.isfinite(regret).all()) and regret.min() >= -1e-6,
+              f"driver seed {seed}: regret {regret}")
+        emit("driver", time.perf_counter() - ts, seed=seed,
+             experiment="BRANIN_T8_P32_N1_SCAMLGP", tasks=8, points=32,
+             d=len(space), sigma=1.0, evaluations=DRIVER_EVALS,
+             dtype="float64", optimum=float(res["optimum"]),
+             meta_fit_s=opt.marks[0].get("meta_fit", 0.0),
+             refit_s=per_eval("refit"),
+             acquisition_s=per_eval("acquisition"),
+             regret=[float(v) for v in regret],
+             predict_vs_cpu_max_rel=rel, max_memory_allocated=peak,
+             stages=GLOBAL_TIMER.report())
+    launches = launches_now()
+    emit("driver_phase", time.perf_counter() - t0, launches=launches)
     return launches
 
 
@@ -504,6 +704,8 @@ REPLACES = {
     "blocked_chol_inverse_global": (
         "scamlgp_tpu_torch/csrc/blocked_chol_inverse.cu",
         "scamlgp_tpu/ops/pallas_blocked_chol.py:244"),
+    "rbf_gram": ("scamlgp_tpu_torch/csrc/gram.cu",
+                 "scamlgp_tpu/ops/pallas_gram.py:31"),
 }
 
 
@@ -511,8 +713,11 @@ def main():
     card = phase_device()
     phase_build()
     max_err, head = phase_kernel()
+    head["rbf_gram"], gram_launches = phase_gram()
+    max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
     by_slice = {key: phase_slice(key) for key in SLICES}
     by_slice["bench_sweep_n"] = phase_bench()
+    by_slice["driver"] = phase_driver()
     # each kernel's launches in the slice (or the bench) whose main path
     # carries it
     carrier = {name: key for key, sl in SLICES.items()
@@ -520,8 +725,10 @@ def main():
     carrier.update(sweep_inverse_pair="bench_sweep_n",
                    sweep_inverse_blocked="bench_sweep_n")
     launches = {name: by_slice[key][name] for name, key in carrier.items()}
+    # no path launches the Gram kernel: its count is the gram phase's
+    launches["rbf_gram"] = gram_launches
     kernels = []
-    for name in KERNELS:
+    for name in (*KERNELS, "rbf_gram"):
         source, replaces = REPLACES[name]
         kernels.append({
             "name": name,

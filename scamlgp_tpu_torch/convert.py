@@ -1,7 +1,7 @@
 """Carry parameters and state across between the JAX package and the port.
 
 The JAX package's structures (``GPParams``, ``TargetParams``, ``TaskData``,
-``SourceStack``) arrive as dicts of numpy arrays keyed by their NamedTuple
+``SourceStack``, ``ScaMLGP``) arrive as dicts of numpy arrays keyed by their NamedTuple
 field names, nested for nested structures; the functions here build the
 port's structures of the same names from them, so that both packages
 compute the same thing.  ``to_numpy_dict`` goes the other way for any
@@ -44,6 +44,15 @@ def source_stack(d: dict, dtype=torch.float64, device=None) -> m.SourceStack:
                          params=gp_params(d["params"], dtype, dev),
                          chol=_t(d["chol"], dtype, dev),
                          alpha=_t(d["alpha"], dtype, dev))
+
+
+def scamlgp_model(d: dict, dtype=torch.float64, device=None) -> m.ScaMLGP:
+    """A target model (``models.scamlgp.ScaMLGP``) from its fields."""
+    dev = resolve_device(device)
+    arrays = {f: _t(d[f], dtype, dev) for f in m.ScaMLGP._fields
+              if f not in ("source", "params")}
+    return m.ScaMLGP(source=source_stack(d["source"], dtype, dev),
+                     params=target_params(d["params"], dtype, dev), **arrays)
 
 
 def to_numpy_dict(tree) -> dict:

@@ -11,6 +11,14 @@ plus a residual target kernel; the weights are learned with the target MLL.
 Source GPs are one batched stack: data padded to a common N with masks,
 parameters with a leading task axis (and any leading study axes in front of
 it).  Weight pruning is a multiplicative 0/1 mask.
+
+The target model ``ScaMLGP`` is one study's immutable state (source stack,
+target buffers padded with a mask, frozen global normalizer, parameters and
+the source moments cached at the training inputs), as the sequential driver
+``bo/optimizer.py::ScaMLGPBO`` holds it.  Where the reference maps a
+function over restarts or query points with ``vmap``, the port writes the
+axis out: restarts are the leading axis of the parameters, query points a
+leading axis of the inputs.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.ops import linalg
@@ -79,6 +88,26 @@ def pack_task_data(xs, ys, dtype=torch.float64, device=None) -> TaskData:
     tr = fit_standardize(Y, mask, dim=-1)
     y_std = (Y - tr.mean[:, None]) / tr.std[:, None] * mask
     return TaskData(X=X, y=y_std, mask=mask, mean=tr.mean, std=tr.std)
+
+
+def validate_meta_data(xs, ys) -> None:
+    """Shape checks of per-task meta-data (the reference's ``utils.py:112-136``,
+    ``scamlgp_tpu/models/scamlgp.py:95``)."""
+    if len(xs) == 0:
+        raise ValueError("Empty meta data. Needs at least one source task.")
+    if len(xs) != len(ys):
+        raise ValueError("meta X and Y task counts differ.")
+    d = np.shape(xs[0])[-1]
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if np.shape(x)[-1] != d:
+            raise ValueError(f"Feature dim of task {i} does not match task 0.")
+        y_shape = np.shape(y)
+        if len(y_shape) == 2 and y_shape[-1] != 1:
+            raise ValueError(
+                f"The output dimension of task {i} is {y_shape[-1]} "
+                f"but must be one")
+        if np.shape(x)[0] != y_shape[0]:
+            raise ValueError(f"X/Y length mismatch in task {i}.")
 
 
 def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
@@ -250,6 +279,172 @@ def sample_target_params(cfg: gp.GPConfig, generator: torch.Generator,
                                             batch_shape))
 
 
+def output_normalizer(stack: SourceStack, ybuf, mask):
+    """The frozen global Standardize over concat(meta-Y, target-Y) in the
+    original space, with the identity where there is no target data
+    (``model.py:261-276,307-308``).  ``ybuf``, ``mask`` (..., n) may carry
+    leading (study) axes that the stack shares; returns (out_mean,
+    out_std), each (...)."""
+    d = stack.data
+    meta_y = d.y * d.std[..., None] + d.mean[..., None]
+    lead = meta_y.shape[:-2]
+    all_y = torch.cat([meta_y.reshape(lead + (-1,)), ybuf], dim=-1)
+    all_m = torch.cat([d.mask.reshape(lead + (-1,)), mask], dim=-1)
+    tr = fit_standardize(all_y, all_m, dim=-1)
+    has_target = torch.sum(mask, dim=-1) > 0
+    out_mean = torch.where(has_target, tr.mean, torch.zeros_like(tr.mean))
+    out_std = torch.where(has_target, tr.std, torch.ones_like(tr.std))
+    return out_mean, out_std
+
+
+class ScaMLGP(NamedTuple):
+    """Immutable model state of one study: source stack + target data +
+    parameters (the reference's ``ScaMLGP(SingleTaskGP)``,
+    ``model.py:218-384``).  ``train_y`` is in the original space; the
+    frozen global normalizer is ``(out_mean, out_std)``."""
+
+    source: SourceStack
+    train_X: torch.Tensor              # (n, d)
+    train_y: torch.Tensor              # (n,) original space
+    train_mask: torch.Tensor           # (n,)
+    out_mean: torch.Tensor             # ()
+    out_std: torch.Tensor              # ()
+    params: TargetParams
+    cached_source_means: torch.Tensor  # (n, M) original space at train_X
+    cached_source_covs: torch.Tensor   # (M, n, n)
+
+    @property
+    def weights(self):
+        return weights_forward(self.params.raw_weights)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.source.num_tasks
+
+
+def build_scamlgp(source: SourceStack, source_cfg: gp.GPConfig,
+                  train_X, train_y, train_mask=None,
+                  target_cfg: Optional[gp.GPConfig] = None,
+                  params: Optional[TargetParams] = None) -> ScaMLGP:
+    """Assemble the target model (``model.py:218-339``): fit and freeze the
+    global normalizer on concat(meta-Y, target-Y), cache the source moments
+    at train_X, and start the weights at 1/M (or take ``params`` as the
+    warm start)."""
+    target_cfg = target_cfg or gp.target_gp_config()
+    train_y = train_y.reshape(-1)
+    n, d = train_X.shape
+    if train_mask is None:
+        train_mask = torch.ones((n,), dtype=train_X.dtype,
+                                device=train_X.device)
+    out_mean, out_std = output_normalizer(source, train_y, train_mask)
+    means, covs = source_predict(source, source_cfg, train_X, full_cov=True)
+    if params is None:
+        params = init_target_params(target_cfg, source.num_tasks, d,
+                                    train_X.dtype, train_X.device)
+    return ScaMLGP(source=source, train_X=train_X, train_y=train_y,
+                   train_mask=train_mask, out_mean=out_mean.to(train_X.dtype),
+                   out_std=out_std.to(train_X.dtype), params=params,
+                   cached_source_means=means.transpose(-1, -2),
+                   cached_source_covs=covs)
+
+
+def _training_prior(model: ScaMLGP, params: TargetParams):
+    """Training-mode prior moments at train_X from the cached source
+    posteriors, through the frozen normalizer (``model.py:359-363,376-382``).
+    ``params`` may carry leading (restart) axes: (..., n), (..., n, n)."""
+    w = weights_forward(params.raw_weights)                     # (..., M)
+    mean = torch.einsum("nm,...m->...n", model.cached_source_means, w)
+    cov = torch.einsum("mij,...m->...ij", model.cached_source_covs, w ** 2)
+    return ((mean - model.out_mean) / model.out_std,
+            cov / model.out_std ** 2)
+
+
+def scamlgp_map_objective(model: ScaMLGP, target_cfg: gp.GPConfig,
+                          params: TargetParams) -> torch.Tensor:
+    """Negative (target MLL + priors), one value per leading (restart)
+    index of ``params`` (``model.py:359-363`` + ``utils.py:175-192``)."""
+    prior_mean, prior_cov = _training_prior(model, params)
+    y_std = (model.train_y - model.out_mean) / model.out_std * model.train_mask
+    w = weights_forward(params.raw_weights)
+    extra = torch.sum(WEIGHTS_PRIOR.log_prob(w), dim=-1)
+    return gp.map_objective(target_cfg, params.gp, model.train_X, y_std,
+                            mask=model.train_mask, prior_mean=prior_mean,
+                            prior_cov=prior_cov, extra_log_prior=extra)
+
+
+def fit_scamlgp(model: ScaMLGP, target_cfg: gp.GPConfig,
+                generator: Optional[torch.Generator] = None,
+                num_restarts: int = 5, num_steps: int = 60,
+                init_stack: Optional[TargetParams] = None) -> ScaMLGP:
+    """Refit weights + residual kernel + noise from the warm start
+    ``model.params`` and ``num_restarts`` prior draws from ``generator``
+    (``optimizer.py:185`` -> ``utils.py:139-212``), all restarts as one
+    batched L-BFGS.  ``init_stack`` (leaves with a leading restart axis,
+    the warm start first) replaces the warm start and the draws."""
+    if init_stack is None:
+        dev = model.train_X.device
+        sampled = sample_target_params(
+            target_cfg, generator, model.num_tasks, model.train_X.shape[-1],
+            model.train_X.dtype, batch_shape=(num_restarts,))
+        init_stack = fit_lib.stack_restarts(
+            model.params, fit_lib.tree_map(lambda leaf: leaf.to(dev),
+                                           sampled))
+    res = fit_lib.fit_map_restarts(
+        lambda p: scamlgp_map_objective(model, target_cfg, p), init_stack,
+        num_steps=num_steps)
+    return model._replace(params=res.params)
+
+
+def _eval_prior(model: ScaMLGP, source_cfg: gp.GPConfig, P,
+                pruning_threshold: float = DEFAULT_PRUNING_THRESHOLD):
+    """Eval-mode prior over points P (..., q, d) in standardized target
+    space, with weight pruning (``model.py:364-382``)."""
+    w = weights_forward(model.params.raw_weights)
+    prune = significant_weights_mask(
+        w, model.source.data.std, pruning_threshold).to(P.dtype)
+    means, covs = source_predict(model.source, source_cfg, P, full_cov=True)
+    w_eff = w * prune
+    mean = torch.sum(means * w_eff[:, None], dim=-2)
+    cov = torch.sum(covs * (w_eff ** 2)[:, None, None], dim=-3)
+    return ((mean - model.out_mean) / model.out_std,
+            cov / model.out_std ** 2)
+
+
+def scamlgp_posterior(model: ScaMLGP, source_cfg: gp.GPConfig,
+                      target_cfg: gp.GPConfig, Xq,
+                      pruning_threshold: float = DEFAULT_PRUNING_THRESHOLD,
+                      observation_noise: bool = False,
+                      original_scale: bool = True):
+    """Posterior predictive (mean (..., q), cov (..., q, q)) at Xq
+    (..., q, d) by joint conditioning: the prior over [train_X; Xq] from the
+    pruned source mixture plus the residual kernel, conditioned exactly on
+    the standardized target observations; in the original y space when
+    ``original_scale``.  Leading axes of Xq are independent queries."""
+    n = model.train_X.shape[0]
+    lead = Xq.shape[:-2]
+    P = torch.cat([model.train_X.expand(lead + model.train_X.shape), Xq],
+                  dim=-2)
+    prior_mean, prior_cov = _eval_prior(model, source_cfg, P,
+                                        pruning_threshold)
+    c = gp.constrain(target_cfg, model.params.gp)
+    cov_full = prior_cov + gp.gram(target_cfg, c, P)
+    mask = model.train_mask
+    y_std = (model.train_y - model.out_mean) / model.out_std * mask
+    resid = y_std - prior_mean[..., :n] * mask
+    state = linalg.cholesky_factor(cov_full[..., :n, :n], c.noise, resid,
+                                   mask)
+    mean, cov = linalg.posterior(state, cov_full[..., :n, n:],
+                                 Kqq=cov_full[..., n:, n:])
+    mean = mean + prior_mean[..., n:]
+    if observation_noise:
+        cov = cov + c.noise * torch.eye(cov.shape[-1], dtype=cov.dtype,
+                                        device=cov.device)
+    if original_scale:
+        mean = mean * model.out_std + model.out_mean
+        cov = cov * model.out_std ** 2
+    return mean, cov
+
+
 class AcqState(NamedTuple):
     """Candidate-independent cache for the acquisition: built once per refit,
     it turns each candidate into O(M Ns + n) work against cached factors."""
@@ -328,3 +523,72 @@ def posterior_diag_from_state(stack: SourceStack, source_cfg: gp.GPConfig,
     if original_scale:
         return mu * os_ + om, var * os_ ** 2
     return mu, var
+
+
+def scamlgp_acq_state(model: ScaMLGP, source_cfg: gp.GPConfig,
+                      target_cfg: gp.GPConfig,
+                      pruning_threshold: float = DEFAULT_PRUNING_THRESHOLD,
+                      params: Optional[TargetParams] = None) -> AcqState:
+    """Cached acquisition state of a fitted model, built once per refit
+    (``params`` overrides the model's)."""
+    p = model.params if params is None else params
+    return acq_state_from_parts(
+        model.source, source_cfg, target_cfg, p, model.train_X,
+        model.train_y, model.train_mask, model.out_mean, model.out_std,
+        pruning_threshold)
+
+
+def scamlgp_posterior_diag_cached(model: ScaMLGP, source_cfg: gp.GPConfig,
+                                  target_cfg: gp.GPConfig, state: AcqState,
+                                  Xq, original_scale: bool = True):
+    """Marginal (mean, var) at Xq (Q, d) through the cached state: the
+    result of ``scamlgp_posterior_diag`` at O(n) work per candidate."""
+    return posterior_diag_from_state(model.source, source_cfg, target_cfg,
+                                     state, model.train_X, Xq,
+                                     original_scale=original_scale)
+
+
+def scamlgp_posterior_diag(model: ScaMLGP, source_cfg: gp.GPConfig,
+                           target_cfg: gp.GPConfig, Xq,
+                           pruning_threshold: float = DEFAULT_PRUNING_THRESHOLD,
+                           original_scale: bool = True):
+    """Marginal mean and variance at each point of Xq (Q, d), each point
+    conditioned jointly on its own (n+1)-point model, all Q at once."""
+    mean, cov = scamlgp_posterior(model, source_cfg, target_cfg,
+                                  Xq[:, None, :],
+                                  pruning_threshold=pruning_threshold,
+                                  original_scale=original_scale)
+    return mean[:, 0], torch.clamp_min(cov[:, 0, 0], 1e-30)
+
+
+def meta_fit_scamlgp(meta_xs, meta_ys,
+                     generator: Optional[torch.Generator] = None,
+                     cfg: Optional[gp.GPConfig] = None,
+                     num_restarts_log_likelihood: int = 5,
+                     num_steps: int = 60, dtype=torch.float64, device=None,
+                     init_stack: Optional[gp.GPParams] = None):
+    """Fit the source GP stack on per-task meta-data (the reference's
+    ``meta_fit_scamlgp``, ``model.py:138-189``) on the Cholesky route, as
+    the JAX package does.
+
+    Args:
+        meta_xs / meta_ys: per-task (N_i, d) unit-cube inputs and (N_i,) or
+            (N_i, 1) observations.
+        generator: source of the restart draws (a CPU generator seeded with
+            0 when left out); ``init_stack`` replaces them
+            (``meta_fit_task_stack``).
+        device: ``cuda`` unless the caller names one.
+    Returns:
+        (fitted SourceStack, the GPConfig used).
+    """
+    validate_meta_data(meta_xs, meta_ys)
+    cfg = cfg or gp.source_gp_config()
+    if generator is None and init_stack is None:
+        generator = torch.Generator(device="cpu").manual_seed(0)
+    data = pack_task_data(meta_xs, meta_ys, dtype=dtype,
+                          device=resolve_device(device))
+    stack = meta_fit_task_stack(data, cfg, generator,
+                                num_restarts=num_restarts_log_likelihood,
+                                num_steps=num_steps, mll_method="chol",
+                                init_stack=init_stack)
+    return stack, cfg

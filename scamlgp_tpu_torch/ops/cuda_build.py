@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 #: the kernel sources, one library each
-SOURCES = ("sweep_inverse", "sweep_variants", "blocked_chol_inverse")
+SOURCES = ("sweep_inverse", "sweep_variants", "blocked_chol_inverse", "gram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 #: each source's flags beyond NVCC_FLAGS.  The sweep kernels are built

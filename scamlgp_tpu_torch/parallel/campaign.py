@@ -43,7 +43,6 @@ from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.ops import inverse_mll
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
-from scamlgp_tpu_torch.utils.standardize import fit_standardize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,21 +158,6 @@ def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
                                     batch_ndim=batch_ndim).params
 
 
-def _out_transform(stack, ybuf, mask):
-    """Global Standardize over concat(meta, target) per study, with the
-    empty-target identity rule (model.py:261-276,307-308)."""
-    d = stack.data
-    meta_y = d.y * d.std[..., None] + d.mean[..., None]
-    lead = meta_y.shape[:-2]
-    all_y = torch.cat([meta_y.reshape(lead + (-1,)), ybuf], dim=-1)
-    all_m = torch.cat([d.mask.reshape(lead + (-1,)), mask], dim=-1)
-    tr = fit_standardize(all_y, all_m, dim=-1)
-    has_target = torch.sum(mask, dim=-1) > 0
-    out_mean = torch.where(has_target, tr.mean, torch.zeros_like(tr.mean))
-    out_std = torch.where(has_target, tr.std, torch.ones_like(tr.std))
-    return out_mean, out_std
-
-
 def _propose(stack, source_cfg, target_cfg, state, Xbuf, raw,
              cfg: CampaignConfig) -> torch.Tensor:
     """UCB(beta, minimize) ascent over the unit cube for every study: the
@@ -203,7 +187,7 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
     S, M = stack.data.X.shape[:2]
     dtype, dev = Xbuf.dtype, Xbuf.device
     with GLOBAL_TIMER("iteration_fit_target", dev):
-        out_mean, out_std = _out_transform(stack, ybuf, mask)
+        out_mean, out_std = m.output_normalizer(stack, ybuf, mask)
         warm = m.TargetParams(
             raw_weights=m.weights_inverse(torch.full(
                 (S, M), 1.0 / M, dtype=dtype, device=dev)),

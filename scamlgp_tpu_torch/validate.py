@@ -6,6 +6,7 @@ with the JAX package's committed regret rows.
         [--mll-method sweep] [--route-blocked] [--sweep-variant select]
         [--optimum-method shgo] [--seed 0]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
+        [--driver campaign|sequential]
 
 The defaults are the Branin T8 run of the committed curve
 ``docs/branin_t8_p32_n1_regrets_tpu_128studies.npy``: 8 meta-tasks x 32
@@ -23,6 +24,18 @@ float32.  Prints one JSON line with the median simple regret per
 iteration, the timings (and the campaign's stages from
 ``utils.profiling.GLOBAL_TIMER``), each kernel's launches, and the card's
 name and power limit.
+
+``--driver sequential`` runs the same experiment study by study through
+the sequential driver instead, as the reference runs it: for each study
+seed, ``run_study(ScaMLGPBO, {}, benchmark, {"n_data_per_task": ...},
+evals, seed, HomoscedasticGaussianNoise({"loss": sigma}))``, float64 on
+the Cholesky route with the driver's defaults (5 restarts, 60 L-BFGS
+steps, UCB(9), 1024 raw samples, 8 starts x 50 ascent steps).  Its regret
+is the best noise-free loss so far minus the study's optimum; its JSON
+line holds the same summary, with the driver's stages (``meta_fit``,
+``refit``, ``acquisition``) and each study's seconds.  The campaign's
+``--mll-method``, ``--route-blocked``, ``--sweep-variant`` and
+``--optimum-method`` do not apply to it.
 """
 
 from __future__ import annotations
@@ -36,6 +49,9 @@ import numpy as np
 import torch
 
 from scamlgp_tpu_torch.benchmarking import benchmarks
+from scamlgp_tpu_torch.benchmarking.local_runner import run_study
+from scamlgp_tpu_torch.benchmarking.noise import HomoscedasticGaussianNoise
+from scamlgp_tpu_torch.bo import ScaMLGPBO
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
@@ -80,6 +96,58 @@ def compare(ref: np.ndarray, reg: np.ndarray, seed: int = 0,
                 if sub else None}
 
 
+def study_regret(result: dict) -> np.ndarray:
+    """Best noise-free loss so far minus the study's optimum, per
+    evaluation of one ``run_study`` result."""
+    losses = [e["objectives"]["loss (noise free)"]
+              for e in result["evaluations"]]
+    return np.minimum.accumulate(losses) - result["optimum"]
+
+
+def regret_summary(reg: np.ndarray) -> dict:
+    """The JSON line's regret entries for an (S, E) regret array."""
+    med = np.median(reg, axis=0)
+    cum = reg.mean(axis=1)      # each study's average cumulative regret
+    return {
+        "median_regret": [float(v) for v in med],
+        "median_final_regret": float(med[-1]),
+        "mean_final_regret": float(reg[:, -1].mean()),
+        "mean_cumulative_regret": float(reg.mean()),
+        "avg_cum_regret_sem": float(cum.std(ddof=1) / np.sqrt(len(cum)))
+        if len(cum) > 1 else None,
+    }
+
+
+def run_sequential(args, device: torch.device):
+    """Study seeds ``--seed`` .. ``--seed + --studies - 1``, each through
+    ``run_study`` and the sequential driver; returns (the JSON line, the
+    (S, E) regrets)."""
+    bench = getattr(benchmarks, args.benchmark)
+    kwargs = {} if args.device is None else {"device": args.device}
+    GLOBAL_TIMER.reset()
+    regrets, study_s = [], []
+    t0 = time.perf_counter()
+    for seed in range(args.seed, args.seed + args.studies):
+        ts = time.perf_counter()
+        res = run_study(ScaMLGPBO, kwargs, bench,
+                        {"n_data_per_task": [args.points] * args.tasks},
+                        args.evals, seed,
+                        HomoscedasticGaussianNoise({"loss": args.sigma}))
+        study_s.append(time.perf_counter() - ts)
+        regrets.append(study_regret(res))
+    reg = np.stack(regrets)
+    out = {
+        "driver": "sequential", "benchmark": args.benchmark,
+        "tasks": args.tasks, "points": args.points, "sigma": args.sigma,
+        "studies": args.studies, "evals": args.evals,
+        "study_seeds": [args.seed, args.seed + args.studies - 1],
+        "dtype": "float64", "device": str(device), "card": _card(device),
+        "run_s": time.perf_counter() - t0, "study_s": study_s,
+        "stages": GLOBAL_TIMER.report(), **regret_summary(reg),
+    }
+    return out, reg
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--benchmark", default="Branin",
@@ -104,11 +172,18 @@ def main(argv=None) -> dict:
                     help="a committed (S_ref, E) regret curve (.npy) to "
                          "report beside the run")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--driver", default="campaign",
+                    choices=["campaign", "sequential"],
+                    help="the lock-step campaign (float32), or one study "
+                         "after another through ScaMLGPBO (float64)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.driver == "sequential":
+        out, reg = run_sequential(args, device)
+        return _finish(args, out, reg)
     t0 = time.perf_counter()
     fn, tp, md, optima = campaign_inputs_from_benchmark(
         getattr(benchmarks, args.benchmark), [args.points] * args.tasks,
@@ -124,8 +199,6 @@ def main(argv=None) -> dict:
     res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device)
     run_s = time.perf_counter() - t0
     reg = simple_regret(res.y_clean, optima).cpu().numpy()
-    med = np.median(reg, axis=0)
-    cum = reg.mean(axis=1)      # each study's average cumulative regret
     out = {
         "benchmark": args.benchmark, "tasks": args.tasks,
         "points": args.points, "sigma": args.sigma,
@@ -145,13 +218,12 @@ def main(argv=None) -> dict:
         "launches_meta_fit": {k: v[0] for k, v in res.launches.items()},
         "launches_per_iteration": {k: v[1:] for k, v in res.launches.items()
                                    if sum(v[1:])},
-        "median_regret": [float(v) for v in med],
-        "median_final_regret": float(med[-1]),
-        "mean_final_regret": float(reg[:, -1].mean()),
-        "mean_cumulative_regret": float(reg.mean()),
-        "avg_cum_regret_sem": float(cum.std(ddof=1) / np.sqrt(len(cum)))
-        if len(cum) > 1 else None,
+        **regret_summary(reg),
     }
+    return _finish(args, out, reg)
+
+
+def _finish(args, out: dict, reg: np.ndarray) -> dict:
     if args.compare:
         out["compare"] = compare(np.load(args.compare), reg, args.seed)
     print(json.dumps(out), flush=True)

@@ -351,7 +351,7 @@ def test_one_lock_step_iteration_matches_on_the_blocked_route(
     tstack = convert.source_stack(convert.to_numpy_dict(it["jstack"]),
                                   device="cpu")
     tX, ty, tmk = (T(a) for a in it["bufs"])
-    om_t, os_t = tc._out_transform(tstack, ty, tmk)
+    om_t, os_t = tm.output_normalizer(tstack, ty, tmk)
     close(om_t, ref["out_mean"], rtol=1e-12)
     close(os_t, ref["out_std"], rtol=1e-12)
     restarts = convert.target_params(convert.to_numpy_dict(it["restarts"]),

@@ -32,6 +32,7 @@ from scamlgp_tpu_torch.benchmarking import torch_adapters as ta
 from scamlgp_tpu_torch.benchmarking.benchmarks import Branin as TBranin
 from scamlgp_tpu_torch.models import fit as tfit
 from scamlgp_tpu_torch.models import gp as tgp
+from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.parallel import campaign as tc
 
 F64 = torch.float64
@@ -187,7 +188,7 @@ def test_one_lock_step_iteration_matches(iteration, method, i):
     tstack = convert.source_stack(convert.to_numpy_dict(it["jstack"]),
                                   device="cpu")
     tX, ty, tmk = (T(a) for a in it["bufs"][i])
-    om_t, os_t = tc._out_transform(tstack, ty, tmk)
+    om_t, os_t = tm.output_normalizer(tstack, ty, tmk)
     close(om_t, ref["out_mean"], rtol=1e-12)
     close(os_t, ref["out_std"], rtol=1e-12)
     restarts = convert.target_params(convert.to_numpy_dict(it["restarts"]),

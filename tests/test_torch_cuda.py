@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (the sweep in its four step schemes, and both variants of the
-blocked Cholesky), and the campaign on the card against the campaign on the
-CPU.
+version (the sweep in its four step schemes, both variants of the blocked
+Cholesky, and the RBF Gram), and the campaign and the sequential driver on
+the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
 imports neither JAX nor the JAX package, so it also runs where those are
@@ -18,7 +18,11 @@ from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
-from scamlgp_tpu_torch.ops import blocked_chol, inverse_mll, sweep
+from scamlgp_tpu_torch import testing as conformance
+from scamlgp_tpu_torch.bo import ScaMLGPBO
+from scamlgp_tpu_torch.bo.core import Objective
+from scamlgp_tpu_torch.ops import blocked_chol, gram, inverse_mll, sweep
+from scamlgp_tpu_torch.ops import kernels as K
 from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +294,84 @@ def test_sweep_variant_campaign_on_the_card_matches_the_cpu(cuda, variant):
     assert res.launches[name][0] > 0
     assert all(c[0] == 0 for k, c in res.launches.items() if k != name)
     torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (300, 200, 3), (257, 513, 6),
+                                   (130, 70, 40), (2048, 2048, 6)])
+def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
+    """The RBF Gram kernel against its plain version on the card, atol 2e-5
+    (the JAX package's tolerance for this kernel); d = 40 takes two feature
+    chunks."""
+    rng = np.random.default_rng(n + d)
+    x, z = (torch.as_tensor(rng.uniform(size=s), dtype=dtype, device=cuda)
+            for s in ((n, d), (m, d)))
+    ls = torch.as_tensor(rng.uniform(0.3, 1.0, size=d), dtype=dtype,
+                         device=cuda)
+    os_ = torch.tensor(1.3, dtype=dtype, device=cuda)
+    before = gram.rbf_gram.launches
+    Kk = gram.rbf_gram(x, z, ls, os_)
+    torch.cuda.synchronize()
+    assert gram.rbf_gram.launches == before + 1
+    assert Kk.dtype == dtype and Kk.shape == (n, m)
+    Kp = gram.rbf_gram_plain(x, z, ls, os_)
+    assert (Kk - Kp).abs().max().item() <= 2e-5
+
+
+def test_gram_kernel_gradient_on_the_card(cuda):
+    """``RbfGram``'s gradients on the card: the VJP of ``kernels.rbf``."""
+    rng = np.random.default_rng(1)
+    vals = (rng.uniform(size=(300, 3)), rng.uniform(size=(200, 3)),
+            rng.uniform(0.3, 1.0, size=3), np.asarray(1.3))
+    kleaves = [torch.tensor(v, device=cuda, requires_grad=True)
+               for v in vals]
+    rleaves = [torch.tensor(v, device=cuda, requires_grad=True)
+               for v in vals]
+    cot = torch.as_tensor(rng.normal(size=(300, 200)), device=cuda)
+    gk = torch.autograd.grad(gram.rbf_gram(*kleaves), kleaves, cot)
+    gr = torch.autograd.grad(K.rbf(*rleaves), rleaves, cot)
+    for a, b in zip(gk, gr):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_gram_counts_launches_only(cuda):
+    """One launch a non-empty call; an empty output launches nothing."""
+    x = torch.rand((64, 2), device=cuda)
+    before = gram.rbf_gram.launches
+    gram.rbf_gram(x, x, 0.5, 1.0)
+    assert gram.rbf_gram.launches == before + 1
+    assert gram.rbf_gram(x[:0], x, 0.5, 1.0).shape == (0, 64)
+    assert gram.rbf_gram.launches == before + 1
+
+
+def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.rand((4, 2), device=cuda)
+    with pytest.raises(TypeError):
+        gram.rbf_gram(x.half(), x.half(), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        gram.rbf_gram(x, torch.rand((4, 3), device=cuda), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        gram.rbf_gram(x, x.cpu(), 1.0, 1.0)
+
+
+def test_driver_on_the_card_matches_the_cpu(cuda):
+    """``ScaMLGPBO`` in float64 proposes the same points on the card as on
+    the CPU from one seed (the generator lives on the CPU)."""
+    xs = []
+    for dev in ("cpu", cuda):
+        opt = ScaMLGPBO(conformance._space_1d(0), Objective("loss", False),
+                        conformance.META_DATA_1D, seed=3, device=dev,
+                        num_restarts_log_likelihood=2, num_fit_steps=20,
+                        af_optimizer_kwargs={"raw_samples": 128,
+                                             "num_restarts": 4,
+                                             "num_steps": 15})
+        assert opt.source_gps.chol.device.type == torch.device(dev).type
+        run = []
+        for _ in range(3):
+            es = opt.generate_evaluation_specification()
+            run.append(es.configuration["x0"])
+            opt.report(es.create_evaluation(objectives={
+                "loss": conformance._run_experiment_1d_deterministic(
+                    **es.configuration)}))
+        xs.append(run)
+    np.testing.assert_allclose(xs[1], xs[0], rtol=1e-6)

@@ -60,8 +60,9 @@ def test_port_and_chip_smoke_import_without_jax():
 
 
 def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
-    """The import guard above walks the package; the kernel N-scaling bench
-    and the profiling hooks are among the modules that it imports."""
+    """The import guard above walks the package; the kernel N-scaling bench,
+    the profiling hooks, the Gram kernel's module, the sequential driver
+    and the study unit are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -71,7 +72,15 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     assert {"scamlgp_tpu_torch.bench_sweep_n",
             "scamlgp_tpu_torch.utils.profiling",
             "scamlgp_tpu_torch.ops.sweep",
-            "scamlgp_tpu_torch.validate"} <= names
+            "scamlgp_tpu_torch.validate",
+            "scamlgp_tpu_torch.ops.gram",
+            "scamlgp_tpu_torch.bo.optimizer",
+            "scamlgp_tpu_torch.testing",
+            "scamlgp_tpu_torch.benchmarking.noise.base",
+            "scamlgp_tpu_torch.benchmarking.noise.benchmark",
+            "scamlgp_tpu_torch.benchmarking.noise.homoscedastic",
+            "scamlgp_tpu_torch.benchmarking.bbo_helper",
+            "scamlgp_tpu_torch.benchmarking.local_runner"} <= names
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -300,7 +300,7 @@ def test_one_lock_step_iteration_matches_jax_sweep_route(hm6, variant,
     tstack = convert.source_stack(convert.to_numpy_dict(hm6["jstack"]),
                                   device="cpu")
     tX, ty, tmk = (T(a) for a in hm6["bufs"])
-    om_t, os_t = tc._out_transform(tstack, ty, tmk)
+    om_t, os_t = tm.output_normalizer(tstack, ty, tmk)
     restarts = convert.target_params(convert.to_numpy_dict(hm6["restarts"]),
                                      device="cpu")
     warm = convert.target_params(convert.to_numpy_dict(hm6["warm"]),
