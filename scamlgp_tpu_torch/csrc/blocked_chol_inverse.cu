@@ -58,6 +58,45 @@ constexpr int BS = 64;
 constexpr int TILE = BS * BS;
 constexpr int THREADS = 256;
 
+// Phase profile of the smem kernel, built only with -DBLOCKED_CHOL_PROFILE
+// (scamlgp_tpu_torch/profile_blocked_chol.py): after a CTA-wide barrier at
+// each phase's end, thread 0 adds the phase's clock64() cycles to its
+// total; at the end every CTA adds its totals, and a count of 1, to
+// g_phase_cycles.  The default build has no barrier and no stamp.
+enum Phase { PH_LOAD, PH_DIAG, PH_TRSM, PH_SYRK, PH_TRINV, PH_WTW, PH_COUNT };
+#ifdef BLOCKED_CHOL_PROFILE
+__device__ unsigned long long g_phase_cycles[PH_COUNT + 1];
+#define PROF_DECL                       \
+  long long prof_last = clock64();      \
+  long long prof_acc[PH_COUNT] = {};
+#define PROF_MARK(ph)                          \
+  do {                                         \
+    __syncthreads();                           \
+    if (threadIdx.x == 0) {                    \
+      const long long now = clock64();         \
+      prof_acc[ph] += now - prof_last;         \
+      prof_last = now;                         \
+    }                                          \
+  } while (0)
+#define PROF_FLUSH()                                              \
+  do {                                                            \
+    if (threadIdx.x == 0) {                                       \
+      for (int p = 0; p < PH_COUNT; ++p)                          \
+        atomicAdd(&g_phase_cycles[p],                             \
+                  static_cast<unsigned long long>(prof_acc[p]));  \
+      atomicAdd(&g_phase_cycles[PH_COUNT], 1ull);                 \
+    }                                                             \
+  } while (0)
+#else
+#define PROF_DECL
+#define PROF_MARK(ph) \
+  do {                \
+  } while (0)
+#define PROF_FLUSH() \
+  do {               \
+  } while (0)
+#endif
+
 // Element (r, c) of a 64 x 64 tile in shared memory.  The XOR keeps each row
 // a permutation of itself and puts the 32 rows of a column in 32 banks.
 __device__ __forceinline__ int sw(int r, int c) {
@@ -248,6 +287,7 @@ __global__ void __launch_bounds__(THREADS)
   const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
   const T* A = a + base;
   T* out = inv + base;
+  PROF_DECL
 
   for (int i = 0; i < nb; ++i)
     for (int j = 0; j <= i; ++j) {
@@ -258,6 +298,7 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 
+  PROF_MARK(PH_LOAD);
   T ld = T(0);
   for (int b = 0; b < nb; ++b) {
     ld += chol_inv_tile(blk(b, b), scratch);
@@ -265,6 +306,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int idx = threadIdx.x; idx < TILE; idx += THREADS)
       diag[idx] = scratch[idx];
     __syncthreads();
+    PROF_MARK(PH_DIAG);
     for (int i = b + 1; i < nb; ++i) {
       Acc<T> acc;
       zero(acc);
@@ -273,6 +315,7 @@ __global__ void __launch_bounds__(THREADS)
       acc_to_tile(acc, blk(i, b));
     }
     __syncthreads();
+    PROF_MARK(PH_TRSM);
     for (int i = b + 1; i < nb; ++i)
       for (int j = b + 1; j <= i; ++j) {
         // each thread reads and writes only its own elements of A[i][j]
@@ -288,6 +331,7 @@ __global__ void __launch_bounds__(THREADS)
         acc_to_tile(acc, t);
       }
     __syncthreads();
+    PROF_MARK(PH_SYRK);
   }
 
   for (int j = 0; j < nb; ++j)
@@ -304,6 +348,7 @@ __global__ void __launch_bounds__(THREADS)
       acc_to_tile(acc, blk(i, j));
       __syncthreads();
     }
+  PROF_MARK(PH_TRINV);
 
   for (int i = 0; i < nb; ++i)
     for (int j = 0; j <= i; ++j) {
@@ -320,6 +365,8 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+  PROF_MARK(PH_WTW);
+  PROF_FLUSH();
 }
 
 // ---------------------------------------------------------------------------
@@ -514,6 +561,21 @@ int blocked_chol_inverse_global_f64(const void* a, void* work, void* inv,
                                     void* stream) {
   return launch_global<double>(a, work, inv, logdet, batch, n, stream);
 }
+
+#ifdef BLOCKED_CHOL_PROFILE
+// The smem kernel's phase totals since the last reset: PH_COUNT cycle sums
+// and the number of CTAs that added to them.
+int blocked_chol_profile_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_phase_cycles, sizeof(unsigned long long) * (PH_COUNT + 1)));
+}
+
+int blocked_chol_profile_reset() {
+  static const unsigned long long zeros[PH_COUNT + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros)));
+}
+#endif
 
 const char* blocked_chol_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -8,7 +8,10 @@ source and the flags, so an edited source is rebuilt.  Nothing is built or
 loaded when this module is imported: ``load`` builds at first use, and
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
 
-A source is built with ``NVCC_FLAGS`` and its own ``SOURCE_FLAGS``.
+A source is built with ``NVCC_FLAGS``, its own ``SOURCE_FLAGS`` and the
+caller's ``extra`` flags (a profiling build's ``-D`` macro, ``-Xptxas -v``);
+each set of flags is a library of its own.  ``BUILD_LOGS`` keeps what
+``nvcc`` printed for each library built in this process.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: versions'; without it, it equals theirs (PERF.md, section 6).
 SOURCE_FLAGS = {"sweep_inverse": ("-fmad=false",),
                 "sweep_variants": ("-fmad=false",)}
+#: library path -> nvcc's output, for each library built in this process
+BUILD_LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -48,21 +53,22 @@ def _nvcc() -> str:
                        "toolkit on PATH or under CUDA_HOME")
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+def _flags(name: str, extra: tuple = ()) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + tuple(extra)
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra: tuple = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(_flags(name, extra)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names=SOURCES) -> list:
+def build_all(names=SOURCES, extra: tuple = ()) -> list:
     """Compile each source of ``names`` whose library is not built yet, one
-    ``nvcc`` each, all started together.  Returns the libraries' paths in
-    the order of ``names``."""
-    outs = [library_path(n) for n in names]
+    ``nvcc`` each, all started together, with ``extra`` flags.  Returns the
+    libraries' paths in the order of ``names``."""
+    outs = [library_path(n, extra) for n in names]
     jobs = []
     for name, out in zip(names, outs):
         if out.exists():
@@ -71,13 +77,14 @@ def build_all(names=SOURCES) -> list:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(name), "-o", tmp,
+            [_nvcc(), *_flags(name, extra), "-o", tmp,
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
+        BUILD_LOGS[str(out)] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed for csrc/{name}.cu (exit "
@@ -90,6 +97,7 @@ def build_all(names=SOURCES) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(build_all([name])[0]))
+def load(name: str, extra: tuple = ()) -> ctypes.CDLL:
+    """The kernel library of ``csrc/<name>.cu`` built with ``extra`` flags,
+    built at first use."""
+    return ctypes.CDLL(str(build_all([name], extra)[0]))

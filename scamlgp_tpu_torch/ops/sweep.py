@@ -20,9 +20,11 @@ not allow takes ``"select"``, as the reference's dispatch falls through
 or the wrapper raises; on a CPU tensor ``sweep_inverse_reference`` runs the
 variant's recurrence in plain torch, one vectorized step per serial trip.
 
-Each kernel keeps one matrix per CTA in shared memory for all its pivots,
-so device memory sees one read and one write of the batch; the bound on the
-card and what each design does about it are set out in the sources.  The
+Each kernel keeps its matrices on chip for all their pivots, so device
+memory sees one read and one write of the batch: ``select`` in registers (a
+warp a matrix at N <= 32, a CTA at N <= 128, ``launch_geometry``), the
+other schemes one matrix per CTA in shared memory.  The bound on the card
+and what each design does about it are set out in the sources.  The
 reference's G-matrices-per-program batching and identity padding
 (``_choose_g``, ``_pad_batch``) existed for the TPU's VMEM and are not
 carried over.
@@ -69,6 +71,29 @@ def sweep_profitable(N: int) -> bool:
     163 KiB of Hopper's 227 KiB, the blocked scheme in f64), so N alone
     decides."""
     return N <= _SWEEP_MAX_N
+
+
+def launch_geometry(N: int, dtype: torch.dtype = torch.float32) -> dict:
+    """How the ``select`` kernel is launched at N (1 <= N <= 128), the rule
+    of ``csrc/sweep_inverse.cu::geometry``: the register capacity (the
+    smallest of 8, 16, 32, 64, 128 that holds N), the threads of a CTA and
+    the matrices a CTA owns.  Up to N = 32 a matrix is CAP lanes of a warp,
+    one column a lane, 128 / CAP matrices a CTA of 128 threads; above, one
+    CTA of 16 x 16 threads owns one matrix, a ``tile`` x ``tile`` register
+    tile a thread.  ``ctas_per_sm`` is the CTA path's launch bound: two
+    CTAs an SM (at most 128 registers a thread) except for the float64
+    8 x 8 tile, whose 64 doubles need one CTA an SM and up to 255."""
+    if not 1 <= N <= _SWEEP_MAX_N:
+        raise ValueError(f"the select kernel takes 1 <= N <= {_SWEEP_MAX_N}, "
+                         f"got {N}")
+    capacity = next(c for c in (8, 16, 32, 64, 128) if N <= c)
+    if capacity <= 32:
+        return {"path": "warp", "capacity": capacity, "threads": 128,
+                "matrices_per_cta": 128 // capacity}
+    tile = capacity // 16
+    return {"path": "cta", "capacity": capacity, "threads": 256,
+            "matrices_per_cta": 1, "tile": tile,
+            "ctas_per_sm": 1 if (dtype == torch.float64 and tile == 8) else 2}
 
 
 def kernel_name(variant: str) -> str:
@@ -232,6 +257,19 @@ def _kernel_fn(variant: str, dtype: torch.dtype):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+def kernel_geometry(N: int) -> dict:
+    """The geometry that the built ``select`` kernel reports at N
+    (``sweep_inverse_geometry``), in ``launch_geometry``'s keys; the card
+    tests hold the two equal."""
+    lib = cuda_build.load("sweep_inverse")
+    out = (ctypes.c_int * 3)()
+    lib.sweep_inverse_geometry.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.sweep_inverse_geometry.restype = None
+    lib.sweep_inverse_geometry(N, ctypes.addressof(out))
+    return {"capacity": out[0], "threads": out[1],
+            "matrices_per_cta": out[2]}
 
 
 def _launch(A: torch.Tensor, variant: str):

@@ -59,6 +59,44 @@ def test_sweep_kernel_matches_plain(cuda, n, dtype):
         <= tol_ld
 
 
+SELECT_NS = [1, 2, 5, 31, 32, 33, 63, 64, 65, 127, 128]
+
+
+@pytest.mark.parametrize("n", SELECT_NS)
+def test_select_kernel_equals_plain_bit_for_bit_f32(cuda, n):
+    """The select kernel repeats ``_sweep_select``'s operations element by
+    element (no FMA), so in float32 it gives the same bits; N crosses every
+    register capacity and the warp and CTA paths, and the batch (37) is no
+    multiple of the matrices a CTA owns."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    inv_k, ld_k = sweep.sweep_inverse(A)
+    torch.cuda.synchronize()
+    inv_p, ld_p = sweep.sweep_inverse_reference(A)
+    assert torch.equal(inv_k, inv_p)
+    assert torch.equal(ld_k, ld_p)
+
+
+@pytest.mark.parametrize("n", SELECT_NS)
+def test_select_kernel_matches_plain_f64(cuda, n):
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        dtype=torch.float64, device=cuda)
+    inv_k, ld_k = sweep.sweep_inverse(A)
+    torch.cuda.synchronize()
+    inv_p, ld_p = sweep.sweep_inverse_reference(A)
+    assert (inv_k - inv_p).abs().max().item() <= 1e-11 * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= 1e-12
+
+
+def test_select_kernel_geometry_is_the_wrappers(cuda):
+    for n in range(1, 129):
+        want = sweep.launch_geometry(n)
+        got = sweep.kernel_geometry(n)
+        assert got == {k: want[k] for k in got}, n
+
+
 def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         sweep.sweep_inverse(torch.eye(130, device=cuda).expand(2, 130, 130)

@@ -220,7 +220,14 @@ class JaxDraws:
                                      device="cpu")
 
 
-def make_case(case):
+#: the Branin case's target functions: each is drawn as
+#: ``Base.create_random_task`` draws the benchmark's target task, but from a
+#: generator with this seed, so that each case drives both drivers on one
+#: fixed function (the benchmark itself draws its target without a seed)
+TARGET_SEEDS = (0, 1, 2, 3)
+
+
+def make_case(case, target_seed=None):
     """(JAX space, objective, meta-data), (the port's), and the target
     function of the loop, a function of a configuration."""
     if case == "meta_data_1d":
@@ -231,10 +238,13 @@ def make_case(case):
                 lambda c: conformance._run_experiment_1d_deterministic(**c))
     jbench = JBranin(n_data_per_task=[6] * 3, seed=2)
     tbench = TBranin(n_data_per_task=[6] * 3, seed=2)
+    task = TBranin.create_random_task(
+        0, tbench._descriptors, tbench._settings, tbench._context,
+        np.random.default_rng(target_seed))
 
     def evaluate(c):
-        return tbench(EvaluationSpecification(configuration=c)).objectives[
-            "loss"]
+        return tbench.function(**c, **task.descriptors, **task.settings,
+                               **task.context)
 
     return ((jbench.search_space, JObjective("loss", False),
              jbench.get_meta_data(distribution="random", seed=2)),
@@ -253,10 +263,16 @@ def _drive(opt, space, evaluate, steps=4):
     return np.stack(xs)
 
 
-@pytest.mark.parametrize("case", ["meta_data_1d", "branin_t3_p6"])
-def test_driver_matches_the_jax_driver(case, monkeypatch):
+@pytest.mark.parametrize(
+    "case, target_seed",
+    [("meta_data_1d", None)]
+    + [("branin_t3_p6", s) for s in TARGET_SEEDS],
+    ids=["meta_data_1d"]
+    + [f"branin_t3_p6_target{s}" for s in TARGET_SEEDS])
+def test_driver_matches_the_jax_driver(case, target_seed, monkeypatch):
     seed = 11
-    (jspace, jobj, jmeta), (tspace, tobj, tmeta), evaluate = make_case(case)
+    (jspace, jobj, jmeta), (tspace, tobj, tmeta), evaluate = make_case(
+        case, target_seed)
     kwargs = {k: v for k, v in FAST_KWARGS.items() if k != "device"}
     jdrv = jopt.ScaMLGPBO(jspace, jobj, jmeta, seed=seed, **kwargs)
     JaxDraws(seed, monkeypatch)

@@ -134,3 +134,30 @@ def test_mll_via_inverse_scalar_n_active_cotangent_has_its_shape():
     assert g.shape == ()
     np.testing.assert_allclose(g.item(), -0.5 * np.log(2 * np.pi),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_select_kernel_launch_geometry(dtype):
+    """The select kernel's launch geometry at every N it takes: a warp path
+    with the smallest register capacity that holds N up to N = 32, a CTA of
+    16 x 16 threads with 4 x 4 or 8 x 8 register tiles above; the card test
+    holds the built kernel to the same rule."""
+    seen = {}
+    for n in range(1, tsw._SWEEP_MAX_N + 1):
+        g = tsw.launch_geometry(n, dtype)
+        assert g["capacity"] >= n
+        assert g["capacity"] == 8 or g["capacity"] // 2 < n
+        if n <= 32:
+            assert g["path"] == "warp" and g["threads"] == 128
+            assert g["matrices_per_cta"] * g["capacity"] == 128
+        else:
+            assert g["path"] == "cta" and g["threads"] == 256
+            assert g["matrices_per_cta"] == 1
+            assert g["tile"] * 16 == g["capacity"]
+            assert g["ctas_per_sm"] == (
+                1 if dtype == F64 and g["tile"] == 8 else 2)
+        seen[g["capacity"]] = seen.get(g["capacity"], 0) + 1
+    assert seen == {8: 8, 16: 8, 32: 16, 64: 32, 128: 64}
+    for bad in (0, tsw._SWEEP_MAX_N + 1):
+        with pytest.raises(ValueError):
+            tsw.launch_geometry(bad, dtype)
