@@ -106,6 +106,10 @@ def cmd_phases(batch: int, n: int):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.blocked_chol_profile_read.argtypes = [ctypes.c_void_p]
+    lib.blocked_chol_profile_read.restype = ctypes.c_int
+    lib.blocked_chol_profile_reset.argtypes = []
+    lib.blocked_chol_profile_reset.restype = ctypes.c_int
     A = spd(batch, n)
     inv = torch.empty_like(A)
     ld = torch.empty(batch, device="cuda")
