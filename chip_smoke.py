@@ -64,7 +64,9 @@ Phases, each printing one JSON line with its own seconds:
    from ``scamlgp_posterior_diag`` on the same model moved to the CPU in
    float64 (``convert.scamlgp_model``).  This path runs on the Cholesky
    route, as the JAX package's does, and launches no kernel of the port;
-6. the card's nvidia-smi line, the kernels line, and the last line
+6. the card's nvidia-smi line, the kernels line (each kernel's entry with
+   its times at its other timed shapes under ``other_shapes``), and the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the result lines.  With no CUDA
@@ -301,7 +303,8 @@ def time_kernel(name, A, reps, plain_reps):
 def phase_kernel():
     """Every kernel against its plain version on the fixture's shapes and at
     the campaign's; then times at the campaign's shapes.  Returns, per
-    kernel, the largest f32 error and the timings at its head shape."""
+    kernel, the largest f32 error, the timings at its head shape and those
+    at its other timed shapes."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     max_err = dict.fromkeys(KERNELS, 0.0)
@@ -376,7 +379,9 @@ def phase_kernel():
         del A
         torch.cuda.empty_cache()
     emit("kernel", time.perf_counter() - t0, dtype="float32", shapes=timed)
-    return max_err, {k: timed[k][w] for k, w in head.items()}
+    others = {k: {w: t for w, t in timed[k].items() if w != head[k]}
+              for k in head}
+    return max_err, {k: timed[k][w] for k, w in head.items()}, others
 
 
 def mll_of(Ainv, logdet, y, n_active):
@@ -712,7 +717,7 @@ REPLACES = {
 def main():
     card = phase_device()
     phase_build()
-    max_err, head = phase_kernel()
+    max_err, head, others = phase_kernel()
     head["rbf_gram"], gram_launches = phase_gram()
     max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
     by_slice = {key: phase_slice(key) for key in SLICES}
@@ -743,6 +748,10 @@ def main():
             "bound_ms": head[name]["bound_ms"],
             "bound_by": head[name]["bound_by"],
             "library_ms": head[name]["library_ms"],
+            # the kernel's times at its other timed shapes (select at the
+            # hm6 p128 meta-fit's and the bench's N = 128, global at the
+            # smem variant's shape)
+            "other_shapes": others.get(name, {}),
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,14 +36,42 @@
 // against 2 N^2 words of device traffic (one read of A, one write of
 // A^{-1}): N / 8 operations per byte in float32, above the H100's float32
 // ridge (67 TFLOP/s over 3.35 TB/s, about 20) for N >= 160, so at the
-// campaign's N = 256 and 512 the operations bound it.  The design keeps operands on chip: the smem
-// variant touches device memory only on the way in and out; the global
-// variant re-reads tiles (one 64 x 64 x 64 product per two tiles), which
-// the 50 MB L2 absorbs in part.  Every tile is stored with an XOR swizzle
-// so that the 4 x 4 register tile of each thread reads rows and columns
-// of its operands without bank conflicts.  The serial part, 64 dependent
+// campaign's N = 256 and 512 the operations bound it (0.256 ms at
+// (1024, 256, 256) in float32).
+//
+// smem variant.  Its blocks and the diagonal factorization's vectors take
+// 161 KiB at N = 256 in float32, so one CTA of 8 warps runs on an SM and
+// nothing else fills its stalls.  The first version took 4.38 ms at
+// (1024, 256, 256), 17x the bound and slower than the global variant: its
+// 64 column steps per diagonal block each had a flat loop with a runtime
+// division and half its threads idle on the triangle's test, and its
+// products gave each thread a 4 x 4 tile, 8 shared-memory loads for 16
+// FMAs, so shared memory, not the FMA units, set their pace.  This design:
+//   - loads the blocks with cp.async, 16 bytes a copy, all in flight;
+//   - factors a diagonal block in registers: thread (dy, dx) of a 16 x 16
+//     grid holds a 4 x 4 tile of the block and of its inverse, column j and
+//     row j of the inverse are broadcast through two double-buffered
+//     64-vectors, one barrier a step, no index arithmetic; elements above
+//     the diagonal or left of column j are updated too, unread, so no test
+//     is needed but the inverse's rows;
+//   - runs every product as four independent 64 x 64 tiles, one per group
+//     of 64 threads, each thread an 8 x 8 register tile: per k, 8 + 8
+//     operand loads (two 16-byte vectors where the operand is read along a
+//     row) for 64 FMAs.  Blocks are stored so that most operands are read
+//     along rows: the panel as L[i][b]^T, the diagonal as Linv^T.  The
+//     tiles use a swizzle of 4-element chunks that keeps both row vectors
+//     and columns free of bank conflicts;
+//   - skips the zero triangle of the lower-triangular left operands where a
+//     warp's rows allow (k < 48 for half the warps);
+//   - forms W by rounds of blocks with i + j fixed, the sum kept in the
+//     block's own slot, so no scratch block is needed.
+// Measured phases and times are in PERF.md (section 6, kernel table row 6).
+//
+// global variant.  The matrix stays in device memory, worked on in place;
+// the tiles of each block operation pass through four 64 x 64 tiles of
+// shared memory with the XOR swizzle sw(); the serial part, 64 dependent
 // column steps per diagonal block with one barrier each, is what a larger
-// batch cannot hide; tensor-core products (wgmma) and TMA are later work.
+// batch cannot hide; it is the next kernel to redesign.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after the launch, 0 on success.
@@ -51,6 +79,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -276,94 +305,390 @@ __device__ T chol_inv_tile(T* P, T* X) {
 // smem variant: one matrix per CTA, its lower blocks resident on chip.
 // ---------------------------------------------------------------------------
 
+// The 256 threads work as 4 groups of 64 on independent 64 x 64 tiles.
+constexpr int GROUPS = THREADS / 64;
+
+// Element (r, c) of a smem-variant tile.  Rows are kept whole, in 4-element
+// chunks, chunk c / 4 of row r at chunk (c / 4) ^ ((r / 4) % 8): a row's
+// chunks load as 16-byte vectors, and a column's elements from rows 4 apart
+// fall in distinct banks.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * BS + ((((c >> 2) ^ ((r >> 2) & 7)) << 2) | (c & 3));
+}
+
+// Row (or column) e < 8 of the eight that thread t < 8 of a group owns in a
+// tile: 4t .. 4t + 3 and 32 + 4t .. 32 + 4t + 3.
+__device__ __forceinline__ int own(int t, int e) {
+  return 4 * t + (e < 4 ? e : 28 + e);
+}
+
+__device__ __forceinline__ void ld4(float* v, const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void ld4(double* v, const double* p) {
+  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+  v[0] = q0.x;
+  v[1] = q0.y;
+  v[2] = q1.x;
+  v[3] = q1.y;
+}
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// f = X[k][own(t, 0..7)] (two vector loads) or X[own(t, 0..7)][k].
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void frag_row(T* f, const T* X, int k, int t) {
+  ld4(f, X + swz(k, 4 * t));
+  ld4(f + 4, X + swz(k, 32 + 4 * t));
+}
+template <typename T>
+__device__ __forceinline__ void frag_col(T* f, const T* X, int k, int t) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = X[swz(own(t, e), k)];
+}
+
+// acc (+|-)= op(A) op(B) over k < k_end for the group's 8 x 8 elements of
+// a 64 x 64 tile; op(X) = X^T where TA (TB) is set.  Each k takes 8 + 8
+// operand loads for 64 FMAs.
+template <typename T, bool TA, bool TB, bool SUB>
+__device__ __forceinline__ void group_mma(T (&acc)[8][8], const T* A,
+                                          const T* B, int ty, int tx,
+                                          int k_end) {
+  // in float64 the 8 x 8 doubles leave no room for a second k in flight
+#pragma unroll (sizeof(T) == 4 ? 2 : 1)
+  for (int k = 0; k < k_end; ++k) {
+    T a[8], b[8];
+    if (TA)
+      frag_row(a, A, k, ty);
+    else
+      frag_col(a, A, k, ty);
+    if (TB)
+      frag_col(b, B, k, tx);
+    else
+      frag_row(b, B, k, tx);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const T ae = SUB ? -a[e] : a[e];
+#pragma unroll
+      for (int f = 0; f < 8; ++f) acc[e][f] = fma(ae, b[f], acc[e][f]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero8(T (&acc)[8][8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int f = 0; f < 8; ++f) acc[e][f] = T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ void acc_load(T (&acc)[8][8], const T* X, int ty,
+                                         int tx) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    ld4(acc[e], X + swz(own(ty, e), 4 * tx));
+    ld4(acc[e] + 4, X + swz(own(ty, e), 32 + 4 * tx));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void acc_store(const T (&acc)[8][8], T* X, int ty,
+                                          int tx) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    st4(X + swz(own(ty, e), 4 * tx), acc[e]);
+    st4(X + swz(own(ty, e), 32 + 4 * tx), acc[e] + 4);
+  }
+}
+
+// The group's elements to rows r0.., columns c0.. of the n x n output
+// (vector stores where vec), and their transpose to rows c0.., columns
+// r0.., dropping what falls past n.
+template <typename T>
+__device__ __forceinline__ void acc_to_out(const T (&acc)[8][8], T* out,
+                                           int n, int r0, int c0, int ty,
+                                           int tx, bool vec) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int r = r0 + own(ty, e);
+    if (r >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 32 * h + 4 * tx;
+      T* p = out + static_cast<size_t>(r) * n + c;
+      if (vec) {
+        if (c < n) st4(p, acc[e] + 4 * h);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < n) p[q] = acc[e][4 * h + q];
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void acc_t_to_out(const T (&acc)[8][8], T* out,
+                                             int n, int r0, int c0, int ty,
+                                             int tx) {
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const int r = c0 + own(tx, f);
+    if (r >= n) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = r0 + own(ty, e);
+      if (c < n) out[static_cast<size_t>(r) * n + c] = acc[e][f];
+    }
+  }
+}
+
+// Factors the SPD tile in slot (its lower triangle) as L L^T and writes
+// L^{-1}, transposed, over it; returns the sum of log pivots (every
+// thread).  The 256 threads hold the tile in registers, thread (dy, dx)
+// the 4 x 4 elements at rows dy + 16 r and columns dx + 16 c, P (the
+// tile) and X (L^{-1}, from the identity).  Column step j: the owners of
+// column j of P and row j of X wrote them, after step j - 1, into half
+// j % 2 of two double-buffered vectors; every thread downdates all its P
+// elements with l = P[:, j] / sqrt(d) (those above the diagonal or left of
+// column j are never read again), its X rows below j with l and X[j] /
+// sqrt(d), and scales row j of X; one barrier a step.  The arithmetic is
+// chol_inv_tile's.
+template <typename T>
+__device__ T chol_inv_regs(T* slot, T* colv, T* xrow) {
+  const int dx = threadIdx.x & 15, dy = threadIdx.x >> 4;
+  T P[4][4], X[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      P[r][c] = slot[swz(dy + 16 * r, dx + 16 * c)];
+      X[r][c] = (dy == dx && r == c) ? T(1) : T(0);
+    }
+  if (dx == 0)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) colv[dy + 16 * r] = P[r][0];
+  if (dy == 0)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xrow[dx + 16 * c] = X[0][c];
+  __syncthreads();
+
+  T logdet = T(0);
+#pragma unroll
+  for (int jc = 0; jc < 4; ++jc) {
+    for (int jt = 0; jt < 16; ++jt) {
+      const int j = 16 * jc + jt;
+      const int buf = (jt & 1) * BS;
+      const T d = colv[buf + j];
+      const T s = sqrt_of(d);
+      const T inv = T(1) / s;
+      logdet += log_of(d);
+      T li[4], lk[4], xj[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) li[r] = colv[buf + dy + 16 * r] * inv;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        lk[c] = colv[buf + dx + 16 * c] * inv;
+        xj[c] = xrow[buf + dx + 16 * c] * inv;
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) P[r][c] -= li[r] * lk[c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (dy + 16 * r > j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) X[r][c] -= li[r] * xj[c];
+      if (dy == jt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) X[jc][c] *= inv;
+
+      // column j + 1 of P and row j + 1 of X, as they stand after step j
+      T* col_next = colv + (buf ^ BS);
+      T* row_next = xrow + (buf ^ BS);
+      if (jt + 1 < 16) {
+        if (dx == jt + 1)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) col_next[dy + 16 * r] = P[r][jc];
+        if (dy == jt + 1)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) row_next[dx + 16 * c] = X[jc][c];
+      } else if (jc + 1 < 4) {
+        const int jn = jc + 1 < 4 ? jc + 1 : jc;  // a constant once unrolled
+        if (dx == 0)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) col_next[dy + 16 * r] = P[r][jn];
+        if (dy == 0)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) row_next[dx + 16 * c] = X[jn][c];
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) slot[swz(dx + 16 * c, dy + 16 * r)] = X[r][c];
+  return logdet;
+}
+
+// Slots hold, in turn: A[i][j] (row-major); after block b's panel, the
+// panel's L[i][b]^T; the diagonal block's L^{-1} transposed; after the
+// triangular inverse, W[i][j] (row-major).  vec: n % 4 == 0 and both
+// matrices 16-byte aligned, so rows load and store as 16-byte vectors.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
     blocked_chol_smem_kernel(const T* __restrict__ a, T* __restrict__ inv,
-                             T* __restrict__ logdet, int n, int nb) {
-  extern __shared__ double smem_d[];
-  T* S = reinterpret_cast<T*>(smem_d);
-  T* scratch = S + static_cast<size_t>(nb * (nb + 1) / 2) * TILE;
+                             T* __restrict__ logdet, int n, int nb, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_tiles[];
+  T* S = reinterpret_cast<T*>(smem_tiles);
+  T* vecs = S + static_cast<size_t>(nb * (nb + 1) / 2) * TILE;
   auto blk = [&](int i, int j) { return S + (i * (i + 1) / 2 + j) * TILE; };
   const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
   const T* A = a + base;
   T* out = inv + base;
+  const int g = threadIdx.x >> 6;
+  const int ty = (threadIdx.x & 63) >> 3, tx = threadIdx.x & 7;
+  // A lower-triangular left operand: the group's first warp holds rows
+  // 0-15 and 32-47, whose sums end at k = 48.
+  const int k_low = (threadIdx.x & 32) ? BS : 48;
   PROF_DECL
 
   for (int i = 0; i < nb; ++i)
-    for (int j = 0; j <= i; ++j) {
-      T* t = blk(i, j);
-      for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
-        const int r = idx >> 6, c = idx & 63;
-        t[sw(r, c)] = padded(A, n, i * BS + r, j * BS + c);
+    for (int j = 0; j <= i; ++j)
+      for (int q = threadIdx.x; q < TILE / 4; q += THREADS) {
+        const int r = q >> 4, c = (q & 15) << 2;
+        const int R = i * BS + r, C = j * BS + c;
+        T* dst = blk(i, j) + swz(r, c);
+        if (vec && R < n && C < n) {
+          const T* src = A + static_cast<size_t>(R) * n + C;
+#pragma unroll
+          for (int h = 0; h < static_cast<int>(sizeof(T)) / 4; ++h)
+            cp_async16(dst + h * (16 / sizeof(T)), src + h * (16 / sizeof(T)));
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) dst[u] = padded(A, n, R, C + u);
+        }
       }
-    }
-
+  cp_async_wait_all();
+  __syncthreads();
   PROF_MARK(PH_LOAD);
+
   T ld = T(0);
   for (int b = 0; b < nb; ++b) {
-    ld += chol_inv_tile(blk(b, b), scratch);
-    T* diag = blk(b, b);
-    for (int idx = threadIdx.x; idx < TILE; idx += THREADS)
-      diag[idx] = scratch[idx];
+    ld += chol_inv_regs(blk(b, b), vecs, vecs + 2 * BS);
     __syncthreads();
     PROF_MARK(PH_DIAG);
-    for (int i = b + 1; i < nb; ++i) {
-      Acc<T> acc;
-      zero(acc);
-      tile_mma<T, false, true, false>(acc, blk(i, b), diag);
-      __syncthreads();
-      acc_to_tile(acc, blk(i, b));
-    }
-    __syncthreads();
-    PROF_MARK(PH_TRSM);
-    for (int i = b + 1; i < nb; ++i)
-      for (int j = b + 1; j <= i; ++j) {
-        // each thread reads and writes only its own elements of A[i][j]
-        Acc<T> acc;
-        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-        T* t = blk(i, j);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc.v[r][c] = t[sw(ty + 16 * r, tx + 16 * c)];
-        tile_mma<T, false, true, true>(acc, blk(i, b), blk(j, b));
-        acc_to_tile(acc, t);
+
+    // panel: L[i][b]^T = Linv A[i][b]^T, group g on row block b + 1 + g
+    {
+      const int i = b + 1 + g;
+      T acc[8][8];
+      if (i < nb) {
+        zero8(acc);
+        group_mma<T, true, true, false>(acc, blk(b, b), blk(i, b), ty, tx,
+                                        k_low);
       }
-    __syncthreads();
+      __syncthreads();
+      if (i < nb) acc_store(acc, blk(i, b), ty, tx);
+      __syncthreads();
+    }
+    PROF_MARK(PH_TRSM);
+
+    // trailing update A[i][j] -= L[i][b] L[j][b]^T; the k-th block of the
+    // lower triangle goes to group k % 4, each element updated in place by
+    // its owner
+    {
+      int q = 0;
+      for (int i = b + 1; i < nb; ++i)
+        for (int j = b + 1; j <= i; ++j, ++q) {
+          if (q % GROUPS != g) continue;
+          T acc[8][8];
+          acc_load(acc, blk(i, j), ty, tx);
+          group_mma<T, true, false, true>(acc, blk(i, b), blk(j, b), ty, tx,
+                                          BS);
+          acc_store(acc, blk(i, j), ty, tx);
+        }
+      __syncthreads();
+    }
     PROF_MARK(PH_SYRK);
   }
 
-  for (int j = 0; j < nb; ++j)
-    for (int i = j + 1; i < nb; ++i) {
-      Acc<T> acc;
-      zero(acc);
-      tile_mma<T, false, false, false>(acc, blk(i, j), blk(j, j));
+  // W = L^{-1}: W[i][j] = -Linv[i][i] (L[i][j] W[j][j] + sum_{j<k<i} L[i][k]
+  // W[k][j]), the blocks with i + j = s together; each reads L blocks of
+  // its own row at k >= j, which later rounds overwrite, and W blocks of
+  // earlier rounds.  The sum goes to the block's own slot, then the product.
+  for (int s = 1; s <= 2 * nb - 3; ++s) {
+    const int i = s / 2 + 1 + g, j = s - i;
+    const bool mine = i < nb && j >= 0;
+    T acc[8][8];
+    if (mine) {
+      zero8(acc);
+      group_mma<T, true, true, false>(acc, blk(i, j), blk(j, j), ty, tx, BS);
       for (int k = j + 1; k < i; ++k)
-        tile_mma<T, false, false, false>(acc, blk(i, k), blk(k, j));
-      acc_to_tile(acc, scratch);
-      __syncthreads();
-      zero(acc);
-      tile_mma<T, false, false, true>(acc, blk(i, i), scratch);
-      acc_to_tile(acc, blk(i, j));
-      __syncthreads();
+        group_mma<T, true, false, false>(acc, blk(i, k), blk(k, j), ty, tx,
+                                         BS);
     }
+    __syncthreads();
+    if (mine) acc_store(acc, blk(i, j), ty, tx);
+    __syncthreads();
+    if (mine) {
+      zero8(acc);
+      group_mma<T, true, false, true>(acc, blk(i, i), blk(i, j), ty, tx,
+                                      k_low);
+    }
+    __syncthreads();
+    if (mine) acc_store(acc, blk(i, j), ty, tx);
+  }
+  __syncthreads();
   PROF_MARK(PH_TRINV);
 
-  for (int i = 0; i < nb; ++i)
-    for (int j = 0; j <= i; ++j) {
-      Acc<T> acc;
-      zero(acc);
-      for (int k = i; k < nb; ++k)
-        tile_mma<T, true, false, false>(acc, blk(k, i), blk(k, j));
-      acc_to_global(acc, out, n, i * BS, j * BS);
-      if (i != j) {
-        acc_to_tile(acc, scratch);
-        __syncthreads();
-        tile_t_to_global(scratch, out, n, j * BS, i * BS);
-        __syncthreads();
+  // A^{-1}[i][j] = sum_{k >= i} W[k][i]^T W[k][j] to both halves; the
+  // blocks, in order of falling cost, go to the groups back and forth
+  {
+    int q = 0;
+    for (int i = 0; i < nb; ++i)
+      for (int j = 0; j <= i; ++j, ++q) {
+        const int round = q / GROUPS, pos = q % GROUPS;
+        if ((round & 1 ? GROUPS - 1 - pos : pos) != g) continue;
+        T acc[8][8];
+        zero8(acc);
+        if (j == i)
+          group_mma<T, false, true, false>(acc, blk(i, i), blk(i, i), ty, tx,
+                                           BS);
+        else
+          group_mma<T, false, false, false>(acc, blk(i, i), blk(i, j), ty,
+                                            tx, BS);
+        for (int k = i + 1; k < nb; ++k)
+          group_mma<T, true, false, false>(acc, blk(k, i), blk(k, j), ty, tx,
+                                           BS);
+        acc_to_out(acc, out, n, i * BS, j * BS, ty, tx, vec != 0);
+        if (i != j) acc_t_to_out(acc, out, n, i * BS, j * BS, ty, tx);
       }
-    }
+  }
   if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
   PROF_MARK(PH_WTW);
   PROF_FLUSH();
@@ -509,13 +834,16 @@ int launch_smem(const void* a, void* inv, void* logdet, long long batch,
   cudaError_t err = allow_max_smem(blocked_chol_smem_kernel<T>, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (n + BS - 1) / BS;
-  const size_t smem = static_cast<size_t>(nb * (nb + 1) / 2 + 1) * TILE *
-                      sizeof(T);
+  // the lower blocks, and the diagonal factorization's four vectors
+  const size_t smem =
+      (static_cast<size_t>(nb * (nb + 1) / 2) * TILE + 4 * BS) * sizeof(T);
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(inv) % 16 == 0;
   blocked_chol_smem_kernel<T>
       <<<static_cast<unsigned int>(batch), THREADS, smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(a), static_cast<T*>(inv),
-          static_cast<T*>(logdet), n, nb);
+          static_cast<T*>(logdet), n, nb, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

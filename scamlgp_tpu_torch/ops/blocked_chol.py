@@ -94,9 +94,10 @@ def blocked_profitable(N: int, itemsize: int = 4,
 
 def smem_bytes(N: int, itemsize: int) -> int:
     """Shared memory of the ``smem`` variant: the nb(nb+1)/2 lower blocks
-    of the padded matrix and one scratch block."""
+    of the padded matrix and the diagonal factorization's four BS-vectors
+    (``csrc/blocked_chol_inverse.cu::launch_smem``)."""
     nb = -(-N // BS)
-    return (nb * (nb + 1) // 2 + 1) * BS * BS * itemsize
+    return (nb * (nb + 1) // 2 * BS * BS + 4 * BS) * itemsize
 
 
 def choose_variant(N: int, itemsize: int, variant=None) -> str:
