@@ -40,7 +40,7 @@
 // (1024, 256, 256) in float32).
 //
 // smem variant.  Its blocks and the diagonal factorization's vectors take
-// 161 KiB at N = 256 in float32, so one CTA of 8 warps runs on an SM and
+// 162 KiB at N = 256 in float32, so one CTA of 8 warps runs on an SM and
 // nothing else fills its stalls.  The first version took 4.38 ms at
 // (1024, 256, 256), 17x the bound and slower than the global variant: its
 // 64 column steps per diagonal block each had a flat loop with a runtime
@@ -49,11 +49,12 @@
 // FMAs, so shared memory, not the FMA units, set their pace.  This design:
 //   - loads the blocks with cp.async, 16 bytes a copy, all in flight;
 //   - factors a diagonal block in registers: thread (dy, dx) of a 16 x 16
-//     grid holds a 4 x 4 tile of the block and of its inverse, column j and
-//     row j of the inverse are broadcast through two double-buffered
-//     64-vectors, one barrier a step, no index arithmetic; elements above
-//     the diagonal or left of column j are updated too, unread, so no test
-//     is needed but the inverse's rows;
+//     grid holds a 4 x 4 tile of the block and of its inverse; columns
+//     j, j + 1 of the block and rows j, j + 1 of the inverse are broadcast
+//     through double-buffered 64-vectors, one barrier for two column
+//     steps, no index arithmetic; elements above the diagonal or left of
+//     the column are updated too, unread, so no test is needed but the
+//     inverse's rows;
 //   - runs every product as four independent 64 x 64 tiles, one per group
 //     of 64 threads, each thread an 8 x 8 register tile: per k, 8 + 8
 //     operand loads (two 16-byte vectors where the operand is read along a
@@ -134,6 +135,8 @@ __device__ __forceinline__ int sw(int r, int c) {
 
 __device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
+__device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
 __device__ __forceinline__ float log_of(float x) { return logf(x); }
 __device__ __forceinline__ double log_of(double x) { return log(x); }
 
@@ -469,15 +472,17 @@ __device__ __forceinline__ void acc_t_to_out(const T (&acc)[8][8], T* out,
 // L^{-1}, transposed, over it; returns the sum of log pivots (every
 // thread).  The 256 threads hold the tile in registers, thread (dy, dx)
 // the 4 x 4 elements at rows dy + 16 r and columns dx + 16 c, P (the
-// tile) and X (L^{-1}, from the identity).  Column step j: the owners of
-// column j of P and row j of X wrote them, after step j - 1, into half
-// j % 2 of two double-buffered vectors; every thread downdates all its P
-// elements with l = P[:, j] / sqrt(d) (those above the diagonal or left of
-// column j are never read again), its X rows below j with l and X[j] /
-// sqrt(d), and scales row j of X; one barrier a step.  The arithmetic is
-// chol_inv_tile's.
+// tile) and X (L^{-1}, from the identity).  Columns go two at a time:
+// the owners of columns j, j + 1 of P and rows j, j + 1 of X wrote them,
+// as they stood before step j, into one half of double-buffered vectors;
+// every thread takes column j + 1 and row j + 1 through step j itself,
+// then downdates all its P elements with both columns' l = P[:, k] /
+// sqrt(d) (elements above the diagonal or left of the column are never
+// read again), its X rows below each pivot, and scales rows j and j + 1
+// of X; one barrier for two steps.  Each element's arithmetic is
+// chol_inv_tile's, with the plain version's rsqrt for 1 / sqrt(d).
 template <typename T>
-__device__ T chol_inv_regs(T* slot, T* colv, T* xrow) {
+__device__ T chol_inv_regs(T* slot, T* vec) {
   const int dx = threadIdx.x & 15, dy = threadIdx.x >> 4;
   T P[4][4], X[4][4];
 #pragma unroll
@@ -487,63 +492,93 @@ __device__ T chol_inv_regs(T* slot, T* colv, T* xrow) {
       P[r][c] = slot[swz(dy + 16 * r, dx + 16 * c)];
       X[r][c] = (dy == dx && r == c) ? T(1) : T(0);
     }
-  if (dx == 0)
+  // half h of vec: columns j, j + 1 of P, rows j, j + 1 of X
+  if (dx < 2)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) colv[dy + 16 * r] = P[r][0];
-  if (dy == 0)
+    for (int r = 0; r < 4; ++r) vec[dx * BS + dy + 16 * r] = P[r][0];
+  if (dy < 2)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) xrow[dx + 16 * c] = X[0][c];
+    for (int c = 0; c < 4; ++c) vec[(2 + dy) * BS + dx + 16 * c] = X[0][c];
   __syncthreads();
 
   T logdet = T(0);
 #pragma unroll
   for (int jc = 0; jc < 4; ++jc) {
-    for (int jt = 0; jt < 16; ++jt) {
+    for (int jt = 0; jt < 16; jt += 2) {
       const int j = 16 * jc + jt;
-      const int buf = (jt & 1) * BS;
-      const T d = colv[buf + j];
-      const T s = sqrt_of(d);
-      const T inv = T(1) / s;
-      logdet += log_of(d);
-      T li[4], lk[4], xj[4];
+      const T* ca = vec + ((jt >> 1) & 1) * 4 * BS;
+      const T* cb = ca + BS;
+      const T* xa = ca + 2 * BS;
+      const T* xb = ca + 3 * BS;
+      // step j
+      const T d0 = ca[j];
+      const T inv0 = rsqrt_of(d0);
+      logdet += log_of(d0);
+      const T a1 = ca[j + 1] * inv0;
+      T ai[4], ak[4], xaj[4], bi[4], bk[4], xbj[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) li[r] = colv[buf + dy + 16 * r] * inv;
+      for (int r = 0; r < 4; ++r) ai[r] = ca[dy + 16 * r] * inv0;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        lk[c] = colv[buf + dx + 16 * c] * inv;
-        xj[c] = xrow[buf + dx + 16 * c] * inv;
+        ak[c] = ca[dx + 16 * c] * inv0;
+        xaj[c] = xa[dx + 16 * c] * inv0;
+      }
+      // column j + 1 of P and row j + 1 of X after step j, then step j + 1
+      const T d1 = cb[j + 1] - a1 * a1;
+      const T inv1 = rsqrt_of(d1);
+      logdet += log_of(d1);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) bi[r] = (cb[dy + 16 * r] - ai[r] * a1) * inv1;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        bk[c] = (cb[dx + 16 * c] - ak[c] * a1) * inv1;
+        xbj[c] = (xb[dx + 16 * c] - a1 * xaj[c]) * inv1;
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) P[r][c] -= li[r] * lk[c];
+        for (int c = 0; c < 4; ++c) {
+          P[r][c] -= ai[r] * ak[c];
+          P[r][c] -= bi[r] * bk[c];
+        }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (dy + 16 * r > j)
+      for (int r = 0; r < 4; ++r) {
+        const int i = dy + 16 * r;
+        if (i > j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) X[r][c] -= li[r] * xj[c];
+          for (int c = 0; c < 4; ++c) X[r][c] -= ai[r] * xaj[c];
+        if (i > j + 1)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) X[r][c] -= bi[r] * xbj[c];
+      }
       if (dy == jt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) X[jc][c] *= inv;
+        for (int c = 0; c < 4; ++c) X[jc][c] *= inv0;
+      if (dy == jt + 1)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) X[jc][c] *= inv1;
 
-      // column j + 1 of P and row j + 1 of X, as they stand after step j
-      T* col_next = colv + (buf ^ BS);
-      T* row_next = xrow + (buf ^ BS);
-      if (jt + 1 < 16) {
-        if (dx == jt + 1)
+      // columns j + 2, j + 3 of P and rows j + 2, j + 3 of X, as they
+      // stand after step j + 1, into the other half
+      T* w = vec + (((jt >> 1) & 1) ^ 1) * 4 * BS;
+      if (jt + 2 < 16) {
+        if (dx == jt + 2 || dx == jt + 3)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) col_next[dy + 16 * r] = P[r][jc];
-        if (dy == jt + 1)
+          for (int r = 0; r < 4; ++r)
+            w[(dx - jt - 2) * BS + dy + 16 * r] = P[r][jc];
+        if (dy == jt + 2 || dy == jt + 3)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) row_next[dx + 16 * c] = X[jc][c];
+          for (int c = 0; c < 4; ++c)
+            w[(dy - jt) * BS + dx + 16 * c] = X[jc][c];
       } else if (jc + 1 < 4) {
         const int jn = jc + 1 < 4 ? jc + 1 : jc;  // a constant once unrolled
-        if (dx == 0)
+        if (dx < 2)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) col_next[dy + 16 * r] = P[r][jn];
-        if (dy == 0)
+          for (int r = 0; r < 4; ++r) w[dx * BS + dy + 16 * r] = P[r][jn];
+        if (dy < 2)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) row_next[dx + 16 * c] = X[jn][c];
+          for (int c = 0; c < 4; ++c)
+            w[(2 + dy) * BS + dx + 16 * c] = X[jn][c];
       }
       __syncthreads();
     }
@@ -599,7 +634,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   T ld = T(0);
   for (int b = 0; b < nb; ++b) {
-    ld += chol_inv_regs(blk(b, b), vecs, vecs + 2 * BS);
+    ld += chol_inv_regs(blk(b, b), vecs);
     __syncthreads();
     PROF_MARK(PH_DIAG);
 
@@ -834,9 +869,9 @@ int launch_smem(const void* a, void* inv, void* logdet, long long batch,
   cudaError_t err = allow_max_smem(blocked_chol_smem_kernel<T>, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (n + BS - 1) / BS;
-  // the lower blocks, and the diagonal factorization's four vectors
+  // the lower blocks, and the diagonal factorization's eight vectors
   const size_t smem =
-      (static_cast<size_t>(nb * (nb + 1) / 2) * TILE + 4 * BS) * sizeof(T);
+      (static_cast<size_t>(nb * (nb + 1) / 2) * TILE + 8 * BS) * sizeof(T);
   const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(inv) % 16 == 0;
   blocked_chol_smem_kernel<T>

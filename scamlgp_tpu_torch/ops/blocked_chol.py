@@ -94,10 +94,10 @@ def blocked_profitable(N: int, itemsize: int = 4,
 
 def smem_bytes(N: int, itemsize: int) -> int:
     """Shared memory of the ``smem`` variant: the nb(nb+1)/2 lower blocks
-    of the padded matrix and the diagonal factorization's four BS-vectors
+    of the padded matrix and the diagonal factorization's eight BS-vectors
     (``csrc/blocked_chol_inverse.cu::launch_smem``)."""
     nb = -(-N // BS)
-    return (nb * (nb + 1) // 2 * BS * BS + 4 * BS) * itemsize
+    return (nb * (nb + 1) // 2 * BS * BS + 8 * BS) * itemsize
 
 
 def choose_variant(N: int, itemsize: int, variant=None) -> str:

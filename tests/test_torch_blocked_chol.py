@@ -239,12 +239,12 @@ def test_blocked_routing_matches_jax(n, itemsize, route, monkeypatch):
 
 
 def test_blocked_variant_choice():
-    """By bytes: the lower blocks and four vectors in one CTA's shared
+    """By bytes: the lower blocks and eight vectors in one CTA's shared
     memory (at most 227 KiB), else the device-memory variant.  Forcing
     ``smem`` where it cannot run raises, on the CPU too."""
-    assert tbc.choose_variant(256, 4) == "smem"      # 161 KiB
-    assert tbc.choose_variant(192, 8) == "smem"      # 194 KiB
-    assert tbc.choose_variant(320, 4) == "global"    # 241 KiB
+    assert tbc.choose_variant(256, 4) == "smem"      # 162 KiB
+    assert tbc.choose_variant(192, 8) == "smem"      # 196 KiB
+    assert tbc.choose_variant(320, 4) == "global"    # 242 KiB
     assert tbc.choose_variant(256, 8) == "global"
     assert tbc.choose_variant(512, 4) == "global"
     assert tbc.choose_variant(88, 4, "global") == "global"
