@@ -64,8 +64,10 @@
 //     and columns free of bank conflicts;
 //   - skips the zero triangle of the lower-triangular left operands where a
 //     warp's rows allow (k < 48 for half the warps);
-//   - forms W by rounds of blocks with i + j fixed, the sum kept in the
-//     block's own slot, so no scratch block is needed.
+//   - forms W column block by column block, right-looking: each sum grows
+//     in its block's own slot as soon as a W block is known, up to three
+//     blocks at once, and the columns overlap, so no scratch block is
+//     needed and N = 256 takes 8 rounds of one product.
 // Measured phases and times are in PERF.md (section 6, kernel table row 6).
 //
 // global variant.  The matrix stays in device memory, worked on in place;
@@ -672,33 +674,62 @@ __global__ void __launch_bounds__(THREADS, 1)
     PROF_MARK(PH_SYRK);
   }
 
-  // W = L^{-1}: W[i][j] = -Linv[i][i] (L[i][j] W[j][j] + sum_{j<k<i} L[i][k]
-  // W[k][j]), the blocks with i + j = s together; each reads L blocks of
-  // its own row at k >= j, which later rounds overwrite, and W blocks of
-  // earlier rounds.  The sum goes to the block's own slot, then the product.
-  for (int s = 1; s <= 2 * nb - 3; ++s) {
-    const int i = s / 2 + 1 + g, j = s - i;
-    const bool mine = i < nb && j >= 0;
-    T acc[8][8];
-    if (mine) {
-      zero8(acc);
-      group_mma<T, true, true, false>(acc, blk(i, j), blk(j, j), ty, tx, BS);
-      for (int k = j + 1; k < i; ++k)
+  // W = L^{-1}, column block j after column block j: the sums S[i][j] =
+  // sum_{j<=k<i} L[i][k] W[k][j] are kept in the slots of L[i][j] and
+  // grown right-looking, each as soon as W[k][j] is known: phase 2m of
+  // column j adds L[i][k] W[k][j] (k = j + m, W[j][j] = Linv) to every
+  // S[i][j], i > k, at once; phase 2m + 1 finishes W[k+1][j] =
+  // -Linv[k+1][k+1] S[k+1][j].  Column j runs its phases in rounds 3j ..;
+  // it reads L[i][k] in round 3j + 2(k - j), before column k, starting in
+  // round 3k, overwrites it.  At N = 256 that is 8 rounds of one product
+  // each, up to three blocks a round.
+  {
+    int rounds = 0;
+    for (int j = 0; j + 1 < nb; ++j)
+      rounds = max(rounds, 3 * j + 2 * (nb - 1 - j));
+    for (int round = 0; round < rounds; ++round) {
+      // this group's block of the round, if any
+      int q = 0, type = -1, i = 0, j = 0, k = 0;
+      for (int jj = 0; jj + 1 < nb; ++jj) {
+        const int p = round - 3 * jj;
+        if (p < 0 || p >= 2 * (nb - 1 - jj)) continue;
+        const int kk = jj + p / 2;
+        if (p % 2 == 0) {
+          for (int ii = kk + 1; ii < nb; ++ii, ++q)
+            if (q == g) {
+              type = 0;
+              i = ii;
+              j = jj;
+              k = kk;
+            }
+        } else {
+          if (q == g) {
+            type = 1;
+            i = kk + 1;
+            j = jj;
+          }
+          ++q;
+        }
+      }
+      T acc[8][8];
+      if (type == 0 && k == j) {
+        zero8(acc);
+        group_mma<T, true, true, false>(acc, blk(i, j), blk(j, j), ty, tx,
+                                        BS);
+      } else if (type == 0) {
+        acc_load(acc, blk(i, j), ty, tx);
         group_mma<T, true, false, false>(acc, blk(i, k), blk(k, j), ty, tx,
                                          BS);
+      } else if (type == 1) {
+        zero8(acc);
+        group_mma<T, true, false, true>(acc, blk(i, i), blk(i, j), ty, tx,
+                                        k_low);
+      }
+      __syncthreads();
+      if (type >= 0) acc_store(acc, blk(i, j), ty, tx);
+      __syncthreads();
     }
-    __syncthreads();
-    if (mine) acc_store(acc, blk(i, j), ty, tx);
-    __syncthreads();
-    if (mine) {
-      zero8(acc);
-      group_mma<T, true, false, true>(acc, blk(i, i), blk(i, j), ty, tx,
-                                      k_low);
-    }
-    __syncthreads();
-    if (mine) acc_store(acc, blk(i, j), ty, tx);
   }
-  __syncthreads();
   PROF_MARK(PH_TRINV);
 
   // A^{-1}[i][j] = sum_{k >= i} W[k][i]^T W[k][j] to both halves; the
