@@ -106,6 +106,13 @@ from scamlgp_tpu_torch.parallel.campaign import (
     run_campaign,
     simple_regret,
 )
+from scamlgp_tpu_torch.profile_kernels import (
+    HBM_BYTES_PER_S,
+    PEAK_OPS,
+    bound,
+    library_inverse,
+    time_ms,
+)
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 from scamlgp_tpu_torch.validate import study_regret
 
@@ -144,10 +151,6 @@ GRAM_TIMED = ((2048, 2048, 6), (4096, 4096, 2))
 #: is not cut)
 DRIVER_SEEDS, DRIVER_EVALS = (0, 1), 10
 
-# H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
-# tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
 TOL_LOGDET = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -168,42 +171,6 @@ def spd_batch(rng, b, n, jitter=0.5):
     X = rng.normal(size=(b, n, n)).astype(np.float32)
     return np.einsum("bij,bkj->bik", X, X) / n + jitter * np.eye(
         n, dtype=np.float32)
-
-
-def time_ms(fn, reps):
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def library_inverse(A):
-    """Yardstick only, never called by the port: library Cholesky inverse
-    and the log-determinant from the factor's diagonal."""
-    L = torch.linalg.cholesky(A)
-    return (torch.cholesky_inverse(L),
-            2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
-
-
-def bound(B, N, dtype):
-    """Least time for (A^{-1}, log|A|) of B SPD matrices N x N: one read of A
-    and one write of the outputs at the HBM rate, against the N^3 operations
-    that the function needs at the least (a Cholesky, a triangular inverse
-    and W^T W at N^3 / 3 each, as LAPACK's potrf + potri), at the peak rate
-    of the type.  The same count holds for every kernel of the function,
-    whatever its own scheme does (the sweep does 2 N^3)."""
-    itemsize = torch.finfo(dtype).bits // 8
-    t_bytes = (2 * B * N * N + B) * itemsize / HBM_BYTES_PER_S
-    t_ops = B * N ** 3 / PEAK_OPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def reset_launches():

@@ -20,6 +20,8 @@
   library Cholesky inverse and the roofline bound, and whether ``select``
   in float32 equals its plain version bit for bit.
 
+``time_ms``, ``library_inverse`` and ``bound`` are also ``chip_smoke.py``'s.
+
 Needs a CUDA device and nvcc; the card's name and power limit head the
 output.
 """
@@ -38,8 +40,10 @@ from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, sweep
 
 PHASES = ("load", "diag", "trsm", "syrk", "trinv", "wtw_store")
 PROFILE_FLAGS = ("-DBLOCKED_CHOL_PROFILE",)
+# H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS = 67e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def _emit(**kw):
@@ -63,8 +67,8 @@ def spd(batch: int, n: int, seed: int = 0, dtype=torch.float32):
     return A.to(dtype).contiguous()
 
 
-def time_ms(fn, reps: int) -> float:
-    for _ in range(2):
+def time_ms(fn, reps):
+    for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -77,19 +81,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(B: int, N: int) -> float:
-    """One read of A and one write of (A^{-1}, log|A|) in float32 against
-    N^3 operations at the float32 peak (chip_smoke.bound)."""
-    return max((2 * B * N * N + B) * 4 / HBM_BYTES_PER_S,
-               B * N ** 3 / PEAK_F32_OPS) * 1e3
-
-
 def library_inverse(A):
-    """Yardstick only: library Cholesky, its inverse and the log-determinant
-    from the factor's diagonal."""
+    """Yardstick only, on no path of the port: library Cholesky inverse
+    and the log-determinant from the factor's diagonal."""
     L = torch.linalg.cholesky(A)
     return (torch.cholesky_inverse(L),
             2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
+
+
+def bound(B, N, dtype):
+    """Least time for (A^{-1}, log|A|) of B SPD matrices N x N: one read of A
+    and one write of the outputs at the HBM rate, against the N^3 operations
+    that the function needs at the least (a Cholesky, a triangular inverse
+    and W^T W at N^3 / 3 each, as LAPACK's potrf + potri), at the peak rate
+    of the type.  The same count holds for every kernel of the function,
+    whatever its own scheme does (the sweep does 2 N^3)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    t_bytes = (2 * B * N * N + B) * itemsize / HBM_BYTES_PER_S
+    t_ops = B * N ** 3 / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cmd_ptxas():
@@ -158,7 +169,7 @@ def cmd_times():
             ms=time_ms(lambda: sweep.sweep_inverse(A, "select"), 20),
             plain_ms=time_ms(lambda: sweep.sweep_inverse_reference(A), 2),
             library_ms=time_ms(lambda: library_inverse(A), 10),
-            bound_ms=bound_ms(B, N)))
+            bound_ms=bound(B, N, A.dtype)[0]))
     A = spd(1024, 256)
     ref_inv, ref_ld = blocked_chol.blocked_chol_inverse_reference(A)
     for variant in blocked_chol.VARIANTS:
@@ -172,7 +183,7 @@ def cmd_times():
             ms=time_ms(lambda: blocked_chol.blocked_chol_inverse(A, variant),
                        10),
             library_ms=time_ms(lambda: library_inverse(A), 10),
-            bound_ms=bound_ms(1024, 256)))
+            bound_ms=bound(1024, 256, A.dtype)[0]))
     for row in rows:
         _emit(probe="times", dtype="float32", **row)
 
