@@ -14,7 +14,9 @@ Phases, each printing one JSON line with its own seconds:
    one PyTorch library call computing the same function, and the roofline
    bound.  Kernels: the sweep inverse in its four step schemes (``select``,
    ``fused``, ``pair``, ``blocked``), and the blocked-Cholesky inverse in
-   its two variants, ``smem`` and ``global``;
+   its two variants, ``smem`` and ``global``.  ``fused`` and ``global``
+   are also timed against their first versions (``old_ms``,
+   ``csrc/baseline_kernels.cu``), in turns;
 3b. gram: the RBF Gram kernel (``ops/gram.py``) against its plain version
    at (n, m, d) = (300, 200, 3), (2048, 2048, 6) and (4096, 1024, 2) in
    float32 and float64 (atol 2e-5), its gradients against autograd of
@@ -44,10 +46,11 @@ Phases, each printing one JSON line with its own seconds:
    is left with a non-finite factor after the meta-fit (a task whose
    factor fails on the inverse route is fitted again on the Cholesky
    route, ``models.scamlgp.refit_nonfinite_tasks``, and its time is the
-   ``meta_fit_refit_chol`` stage).  On the slices with N <= 128
-   the MLL of the meta-fit's own float32 systems is held against float64
-   for every sweep scheme's kernel and its plain version: a kernel farther
-   from float64 than twice its plain version fails;
+   ``meta_fit_refit_chol`` stage).  The MLL of the meta-fit's own float32
+   systems is held against float64 for each kernel of the slice's route
+   and its plain version (every sweep scheme at N <= 128, the blocked
+   variant on the ``route_blocked`` slices): a kernel farther from float64
+   than twice its plain version fails;
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -107,6 +110,7 @@ from scamlgp_tpu_torch.parallel.campaign import (
     simple_regret,
 )
 from scamlgp_tpu_torch.profile_kernels import (
+    BASELINES,
     HBM_BYTES_PER_S,
     PEAK_OPS,
     bound,
@@ -258,11 +262,21 @@ def check_kernel(name, A, what):
 
 
 def time_kernel(name, A, reps, plain_reps):
+    """The kernel's time beside its plain version's, the library call's and
+    the bound; for a kernel with a first version (``BASELINES``), that
+    version's time too, the two timed in turns (old, new, new, old)."""
     kernel, plain = KERNELS[name]
     B, N, _ = A.shape
     bound_ms, bound_by = bound(B, N, A.dtype)
-    return dict(batch=B, n=N, ms=time_ms(lambda: kernel(A), reps),
-                plain_ms=time_ms(lambda: plain(A), plain_reps),
+    out = dict(batch=B, n=N)
+    if name in BASELINES:
+        old = BASELINES[name]
+        t = [time_ms(f, reps) for f in (lambda: old(A), lambda: kernel(A),
+                                        lambda: kernel(A), lambda: old(A))]
+        out.update(ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2)
+    else:
+        out["ms"] = time_ms(lambda: kernel(A), reps)
+    return dict(out, plain_ms=time_ms(lambda: plain(A), plain_reps),
                 library_ms=time_ms(lambda: library_inverse(A), 10),
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -367,24 +381,40 @@ def mll_plain(A, y, n_active, variant="select"):
     return mll_of(Ainv, logdet, y, n_active)
 
 
-def rounding(A, y, n_active, truth, key):
-    """Each sweep scheme's float32 MLL on these systems against ``truth``
+def inverse_schemes(N, route_blocked):
+    """The float32 inverse kernels that a slice's route takes at N, each as
+    (name, kernel, plain version): every sweep scheme that N allows where
+    the sweep serves N, else, with ``route_blocked``, the blocked variant
+    that routing picks.  The kernels launch through the wrappers' uncounted
+    ``_launch``: these comparisons are not the main path's launches."""
+    if sweep.sweep_profitable(N):
+        return [(v, lambda A, v=v: sweep._launch(A, v),
+                 lambda A, v=v: sweep.sweep_inverse_reference(A, v))
+                for v in sweep.VARIANTS if sweep.resolve_variant(N, v) == v]
+    if blocked_chol.blocked_profitable(N, 4, route_blocked):
+        v = blocked_chol.choose_variant(N, 4)
+        return [(v, lambda A: blocked_chol._launch(A, v),
+                 blocked_chol.blocked_chol_inverse_reference)]
+    return []
+
+
+def rounding(A, y, n_active, truth, key, schemes):
+    """Each scheme's float32 MLL on these systems against ``truth``
     (float64): the kernel and its plain version, each as [max, median] over
     the systems of the relative error (|error| / max(|truth|, 1)).  Fails
-    if the kernel's max is above twice the plain version's."""
+    if the kernel's max is above twice the plain version's.  ``schemes``:
+    ``inverse_schemes``' list."""
     def rel(v):
         r = (v.double() - truth).abs() / truth.abs().clamp_min(1.0)
         return [r.max().item(), r.median().item()]
 
     out = {}
-    for v in sweep.VARIANTS:
-        if sweep.resolve_variant(A.shape[-1], v) != v:
-            continue
-        out[v] = {"kernel": rel(mll_of(*sweep._launch(A, v), y, n_active)),
-                  "plain": rel(mll_plain(A, y, n_active, v))}
-        check(out[v]["kernel"][0] <= 2.0 * out[v]["plain"][0],
-              f"{key}: the {v} kernel's MLL is {out[v]['kernel'][0]} from "
-              f"float64, its plain version's {out[v]['plain'][0]}")
+    for name, kernel, plain in schemes:
+        out[name] = {"kernel": rel(mll_of(*kernel(A), y, n_active)),
+                     "plain": rel(mll_of(*plain(A), y, n_active))}
+        check(out[name]["kernel"][0] <= 2.0 * out[name]["plain"][0],
+              f"{key}: the {name} kernel's MLL is {out[name]['kernel'][0]} "
+              f"from float64, its plain version's {out[name]['plain'][0]}")
     return out
 
 
@@ -455,8 +485,8 @@ def phase_slice(key):
     diff = (kern - plain).abs()
     # both f32 results against the plain version in f64 on the same systems
     truth = mll_plain(A.double(), y.double(), na.double())
-    extra = ({"rounding": rounding(A, y, na, truth, key)}
-             if sweep.sweep_profitable(N) else {})
+    rounded = rounding(A, y, na, truth, key,
+                       inverse_schemes(N, sl["route_blocked"]))
 
     def rel_to_truth(v):
         return ((v.double() - truth).abs()
@@ -481,7 +511,7 @@ def phase_slice(key):
          .max().item(),
          mll_kernel_vs_f64_max_rel=rel_to_truth(kern),
          mll_plain_vs_f64_max_rel=rel_to_truth(plain), stages=stages,
-         **extra)
+         rounding=rounded)
     return launches
 
 

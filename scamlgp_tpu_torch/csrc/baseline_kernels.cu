@@ -1,0 +1,465 @@
+// Yardsticks: the first CUDA versions of two kernels that later redesigns
+// replaced, kept only so that a probe can time the old kernel beside the
+// new one in the same run.  No path of the port calls them.
+//
+//   baseline_global_f32: blocked_chol_inverse.cu's first `global` variant
+//     (one matrix a CTA worked on in place in device memory, tiles staged
+//     synchronously through four 64 x 64 shared tiles, 4 x 4 register
+//     tiles, diagonal blocks factored one column a barrier), with the same
+//     -DBLOCKED_CHOL_PROFILE phase stamps as the current kernels;
+//   baseline_fused_f32: sweep_variants.cu's first `fused` scheme (one
+//     matrix a CTA in shared memory, a staging pass and two barriers a
+//     pivot), its multiplies and adds written as __fmul_rn / __fadd_rn so
+//     that, like its source's -fmad=false build, none is contracted.
+//
+// Built by scamlgp_tpu_torch/ops/cuda_build.py like the other sources;
+// scamlgp_tpu_torch/profile_kernels.py and chip_smoke.py time them.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int BS = 64;
+constexpr int TILE = BS * BS;
+constexpr int THREADS = 256;
+constexpr int kThreads = 256;
+
+enum Phase { PH_LOAD, PH_DIAG, PH_TRSM, PH_SYRK, PH_TRINV, PH_WTW, PH_COUNT };
+#ifdef BLOCKED_CHOL_PROFILE
+__device__ unsigned long long g_baseline_phase_cycles[PH_COUNT + 1];
+#define PROF_DECL                       \
+  long long prof_last = clock64();      \
+  long long prof_acc[PH_COUNT] = {};
+#define PROF_MARK(ph)                          \
+  do {                                         \
+    __syncthreads();                           \
+    if (threadIdx.x == 0) {                    \
+      const long long now = clock64();         \
+      prof_acc[ph] += now - prof_last;         \
+      prof_last = now;                         \
+    }                                          \
+  } while (0)
+#define PROF_FLUSH()                                              \
+  do {                                                            \
+    if (threadIdx.x == 0) {                                       \
+      for (int p = 0; p < PH_COUNT; ++p)                          \
+        atomicAdd(&g_baseline_phase_cycles[p],                             \
+                  static_cast<unsigned long long>(prof_acc[p]));  \
+      atomicAdd(&g_baseline_phase_cycles[PH_COUNT], 1ull);                 \
+    }                                                             \
+  } while (0)
+#else
+#define PROF_DECL
+#define PROF_MARK(ph) \
+  do {                \
+  } while (0)
+#define PROF_FLUSH() \
+  do {               \
+  } while (0)
+#endif
+
+// Element (r, c) of a 64 x 64 tile in shared memory.  The XOR keeps each row
+// a permutation of itself and puts the 32 rows of a column in 32 banks.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * BS + (c ^ (r & 31));
+}
+
+__device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
+__device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
+__device__ __forceinline__ float log_of(float x) { return logf(x); }
+__device__ __forceinline__ double log_of(double x) { return log(x); }
+
+// Each thread owns a 4 x 4 register tile of a 64 x 64 result: rows
+// ty + 16 i and columns tx + 16 j.
+template <typename T>
+struct Acc {
+  T v[4][4];
+};
+
+template <typename T>
+__device__ __forceinline__ void zero(Acc<T>& acc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc.v[i][j] = T(0);
+}
+
+// acc (+|-)= op(A) op(B), op(X) = X or X^T, for tiles in shared memory.
+template <typename T, bool TA, bool TB, bool SUB>
+__device__ __forceinline__ void tile_mma(Acc<T>& acc, const T* A, const T* B) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int k = 0; k < BS; ++k) {
+    T a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      a[i] = TA ? A[sw(k, r)] : A[sw(r, k)];
+      if (SUB) a[i] = -a[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      b[j] = TB ? B[sw(c, k)] : B[sw(k, c)];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc.v[i][j] = fma(a[i], b[j], acc.v[i][j]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void acc_to_tile(const Acc<T>& acc, T* t) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[sw(ty + 16 * i, tx + 16 * j)] = acc.v[i][j];
+}
+
+// A tile of a row-major matrix in device memory with leading dimension ld.
+template <typename T>
+__device__ __forceinline__ void acc_from_global(Acc<T>& acc, const T* g,
+                                                int ld) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc.v[i][j] = g[static_cast<size_t>(ty + 16 * i) * ld + tx + 16 * j];
+}
+
+// Writes the register tile to rows r0.., columns c0.. of an n x n matrix,
+// dropping what falls past n.
+template <typename T>
+__device__ __forceinline__ void acc_to_global(const Acc<T>& acc, T* g, int n,
+                                              int r0, int c0) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (r < n && c < n) g[static_cast<size_t>(r) * n + c] = acc.v[i][j];
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void tile_from_global(T* t, const T* g, int ld) {
+  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
+    const int r = idx >> 6, c = idx & 63;
+    t[sw(r, c)] = g[static_cast<size_t>(r) * ld + c];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void tile_to_global(const T* t, T* g, int ld) {
+  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
+    const int r = idx >> 6, c = idx & 63;
+    g[static_cast<size_t>(r) * ld + c] = t[sw(r, c)];
+  }
+}
+
+// The transpose of tile t to rows r0.., columns c0.. of an n x n matrix,
+// dropping what falls past n.  Reads columns of t, writes rows of g.
+template <typename T>
+__device__ __forceinline__ void tile_t_to_global(const T* t, T* g, int n,
+                                                 int r0, int c0) {
+  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
+    const int r = idx >> 6, c = idx & 63;
+    if (r0 + r < n && c0 + c < n)
+      g[static_cast<size_t>(r0 + r) * n + c0 + c] = t[sw(c, r)];
+  }
+}
+
+// Element (R, C) of the n x n matrix a padded with the identity past n.
+template <typename T>
+__device__ __forceinline__ T padded(const T* a, int n, int R, int C) {
+  return (R < n && C < n) ? a[static_cast<size_t>(R) * n + C]
+                          : (R == C ? T(1) : T(0));
+}
+
+// In place: the lower triangle of P (SPD) becomes its Cholesky factor L
+// (the upper triangle is never read), and X becomes L^{-1} (zero above the
+// diagonal).  Step j downdates the trailing block with column j and applies
+// the inverse of the j-th elementary factor to X; the scaling of column j
+// of P and row j of X waits for step j + 1, which touches neither, so each
+// step needs one barrier.  Returns the sum of log pivots (every thread).
+template <typename T>
+__device__ T chol_inv_tile(T* P, T* X) {
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < TILE; idx += THREADS) {
+    const int r = idx >> 6, c = idx & 63;
+    X[sw(r, c)] = (r == c) ? T(1) : T(0);
+  }
+  T logdet = T(0), prev_inv = T(0), prev_sqrt = T(0);
+  for (int j = 0; j <= BS; ++j) {
+    __syncthreads();
+    if (j > 0 && tid < BS) {
+      const int p = j - 1;
+      if (tid > p) {
+        P[sw(tid, p)] *= prev_inv;
+      } else {
+        if (tid == p) P[sw(p, p)] = prev_sqrt;
+        X[sw(p, tid)] *= prev_inv;
+      }
+    }
+    if (j == BS) break;
+    const T d = P[sw(j, j)];
+    const T s = sqrt_of(d);
+    const T inv = T(1) / s;
+    logdet += log_of(d);
+    const int m = BS - 1 - j;
+    for (int t = tid; t < m * m; t += THREADS) {
+      const int i = j + 1 + t / m, k = j + 1 + t % m;
+      if (k <= i) P[sw(i, k)] -= (P[sw(i, j)] * inv) * (P[sw(k, j)] * inv);
+    }
+    const int w = j + 1;
+    for (int t = tid; t < m * w; t += THREADS) {
+      const int i = j + 1 + t / w, c = t % w;
+      X[sw(i, c)] -= (P[sw(i, j)] * inv) * (X[sw(j, c)] * inv);
+    }
+    prev_inv = inv;
+    prev_sqrt = s;
+  }
+  __syncthreads();
+  return logdet;
+}
+
+// work: (B, np, np), the padded copy the kernel works in; out: (B, n, n).
+// They are one buffer when n == np: the last phase then overwrites each W
+// block only after the last product that reads it.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    baseline_global_kernel(const T* __restrict__ a, T* work, T* out,
+                               T* __restrict__ logdet, int n, int nb) {
+  extern __shared__ double smem_d[];
+  T* s0 = reinterpret_cast<T*>(smem_d);
+  T* s1 = s0 + TILE;
+  T* s2 = s1 + TILE;
+  T* s3 = s2 + TILE;
+  const int np = nb * BS;
+  const T* A = a + static_cast<size_t>(blockIdx.x) * n * n;
+  T* G = work + static_cast<size_t>(blockIdx.x) * np * np;
+  T* O = out + static_cast<size_t>(blockIdx.x) * n * n;
+  auto g = [&](int i, int j) {
+    return G + static_cast<size_t>(i * BS) * np + j * BS;
+  };
+  PROF_DECL
+
+  for (int i = 0; i < nb; ++i)
+    for (int j = 0; j <= i; ++j) {
+      T* t = g(i, j);
+      for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
+        const int r = idx >> 6, c = idx & 63;
+        t[static_cast<size_t>(r) * np + c] =
+            padded(A, n, i * BS + r, j * BS + c);
+      }
+    }
+  __syncthreads();
+  PROF_MARK(PH_LOAD);
+
+  T ld = T(0);
+  for (int b = 0; b < nb; ++b) {
+    tile_from_global(s0, g(b, b), np);
+    ld += chol_inv_tile(s0, s1);  // s1 = Linv[b][b] until the next b
+    tile_to_global(s1, g(b, b), np);
+    PROF_MARK(PH_DIAG);
+    for (int i = b + 1; i < nb; ++i) {
+      tile_from_global(s0, g(i, b), np);
+      __syncthreads();
+      Acc<T> acc;
+      zero(acc);
+      tile_mma<T, false, true, false>(acc, s0, s1);
+      acc_to_global(acc, g(i, b), np, 0, 0);
+      __syncthreads();
+    }
+    PROF_MARK(PH_TRSM);
+    for (int i = b + 1; i < nb; ++i) {
+      tile_from_global(s0, g(i, b), np);
+      for (int j = b + 1; j <= i; ++j) {
+        const T* right = s0;
+        if (j != i) {
+          tile_from_global(s2, g(j, b), np);
+          right = s2;
+        }
+        __syncthreads();
+        Acc<T> acc;
+        acc_from_global(acc, g(i, j), np);
+        tile_mma<T, false, true, true>(acc, s0, right);
+        acc_to_global(acc, g(i, j), np, 0, 0);
+        __syncthreads();
+      }
+    }
+    PROF_MARK(PH_SYRK);
+  }
+
+  for (int j = 0; j < nb; ++j)
+    for (int i = j + 1; i < nb; ++i) {
+      Acc<T> acc;
+      zero(acc);
+      for (int k = j; k < i; ++k) {
+        tile_from_global(s0, g(i, k), np);
+        tile_from_global(s2, g(k, j), np);
+        __syncthreads();
+        tile_mma<T, false, false, false>(acc, s0, s2);
+        __syncthreads();
+      }
+      acc_to_tile(acc, s3);
+      tile_from_global(s0, g(i, i), np);
+      __syncthreads();
+      zero(acc);
+      tile_mma<T, false, false, true>(acc, s0, s3);
+      acc_to_global(acc, g(i, j), np, 0, 0);
+      __syncthreads();
+    }
+  PROF_MARK(PH_TRINV);
+
+  for (int i = 0; i < nb; ++i)
+    for (int j = 0; j <= i; ++j) {
+      Acc<T> acc;
+      zero(acc);
+      for (int k = i; k < nb; ++k) {
+        tile_from_global(s0, g(k, i), np);
+        if (j != i) tile_from_global(s2, g(k, j), np);
+        __syncthreads();
+        tile_mma<T, true, false, false>(acc, s0, j != i ? s2 : s0);
+        __syncthreads();
+      }
+      acc_to_global(acc, O, n, i * BS, j * BS);
+      if (i != j) {
+        acc_to_tile(acc, s3);
+        __syncthreads();
+        tile_t_to_global(s3, O, n, j * BS, i * BS);
+      }
+      __syncthreads();
+    }
+  if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+  PROF_MARK(PH_WTW);
+  PROF_FLUSH();
+}
+
+// ---------------------------------------------------------------------------
+// fused
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    baseline_fused_kernel(const float* __restrict__ a, float* __restrict__ inv,
+                          float* __restrict__ logdet, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* A = reinterpret_cast<float*>(smem_raw);
+  float* cd = A + n * n;
+  float* u = cd + n;
+  float* w = u + n;
+  const int nn = n * n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+  // each thread updates column j of rows i0, i0 + rstep, ...
+  const int j = threadIdx.x % n;
+  const int i0 = threadIdx.x / n;
+  const int rstep = blockDim.x / n;
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    A[idx] = a[base + idx];
+  float ld = 0.0f;
+  __syncthreads();
+
+  for (int k = 0; k < n; ++k) {
+    const float d = A[k * n + k];
+    const float inv_d = 1.0f / d;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float e = (i == k) ? 1.0f : 0.0f;
+      const float r = A[k * n + i];
+      cd[i] = __fmul_rn(A[i * n + k], inv_d);
+      u[i] = e - r;
+      w[i] = __fsub_rn(__fmul_rn(r, inv_d), __fmul_rn(e, inv_d + 2.0f));
+    }
+    if (threadIdx.x == 0) ld += logf(d);
+    __syncthreads();
+    if (i0 < rstep) {
+      const float uj = u[j];
+      const float wj = w[j];
+      for (int i = i0; i < n; i += rstep) {
+        const float e = (i == k) ? 1.0f : 0.0f;
+        A[i * n + j] = __fadd_rn(__fadd_rn(A[i * n + j], __fmul_rn(cd[i], uj)),
+                                 __fmul_rn(e, wj));
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    inv[base + idx] = -A[idx];
+  if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+}
+
+}  // namespace
+
+extern "C" {
+
+// work: (batch, np, np), np = 64 ceil(n / 64); it may be inv when n == np.
+int baseline_global_f32(const void* a, void* work, void* inv, void* logdet,
+                        long long batch, int n, void* stream) {
+  if (batch <= 0) return 0;
+  const int nb = (n + BS - 1) / BS;
+  const size_t smem = static_cast<size_t>(4) * TILE * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      baseline_global_kernel<float>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  baseline_global_kernel<float>
+      <<<static_cast<unsigned int>(batch), THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(a), static_cast<float*>(work),
+          static_cast<float*>(inv), static_cast<float*>(logdet), n, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int baseline_fused_f32(const void* a, void* inv, void* logdet,
+                       long long batch, int n, void* stream) {
+  if (batch <= 0) return 0;
+  if (n < 1 || n > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(n) * n + 3 * n) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      baseline_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>((128 * 128 + 3 * 128) * sizeof(float)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nn = n * n;
+  const int threads = nn >= kThreads ? kThreads : ((nn + 31) / 32) * 32;
+  baseline_fused_kernel<<<static_cast<unsigned int>(batch), threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<float*>(inv),
+      static_cast<float*>(logdet), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef BLOCKED_CHOL_PROFILE
+int baseline_profile_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_baseline_phase_cycles,
+      sizeof(unsigned long long) * (PH_COUNT + 1)));
+}
+
+int baseline_profile_reset() {
+  static const unsigned long long zeros[PH_COUNT + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_baseline_phase_cycles, zeros, sizeof(zeros)));
+}
+#endif
+
+const char* baseline_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

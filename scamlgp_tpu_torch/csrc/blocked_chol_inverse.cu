@@ -8,9 +8,8 @@
 //     VMEM): one CTA holds the nb(nb+1)/2 lower 64 x 64 blocks of its
 //     matrix in dynamic shared memory for the whole computation;
 //   - blocked_chol_global_kernel replaces _make_hbm_kernel (one matrix in
-//     HBM staged into one VMEM scratch): the matrix stays in device memory,
-//     worked on in place, and the tiles of each block operation pass
-//     through four 64 x 64 tiles of shared memory.
+//     HBM staged into one VMEM scratch): one CTA a matrix, its blocks in a
+//     device work buffer, streamed through shared memory.
 //
 // Both run the reference's _inverse_body with block size 64.  N is padded to
 // Np, a multiple of 64, with an identity block (its inverse is I and its
@@ -20,7 +19,7 @@
 //           and form its inverse Linv alongside; A[b][b] <- Linv
 //           L[i][b] = A[i][b] Linv^T                 (i > b)
 //           A[i][j] -= L[i][b] L[j][b]^T             (b < j <= i)
-//   W = L^{-1}, column block by column block, in place of L:
+//   W = L^{-1}, column block by column block:
 //           W[i][j] = -Linv[i][i] (L[i][j] W[j][j] + sum_{j<k<i} L[i][k] W[k][j])
 //   A^{-1}[i][j] = sum_{k >= i} W[k][i]^T W[k][j], written to both halves.
 //
@@ -73,11 +72,36 @@
 // the global variant 3.524 there); of a CTA's cycles the diagonal blocks
 // take 24%, the four product phases 72% (PERF.md, section 6).
 //
-// global variant.  The matrix stays in device memory, worked on in place;
-// the tiles of each block operation pass through four 64 x 64 tiles of
-// shared memory with the XOR swizzle sw(); the serial part, 64 dependent
-// column steps per diagonal block with one barrier each, is what a larger
-// batch cannot hide; it is the next kernel to redesign.
+// global variant.  Where the blocks do not fit a CTA (N > 256 in float32,
+// N > 192 in float64) they live in a work buffer in device memory, each
+// 64 x 64 block contiguous in the swz order, and pass through shared memory
+// (the first version staged every operand synchronously through four
+// tiles, factored its diagonal blocks one column a barrier and ran 4 x 4
+// register tiles: 5.04 ms at (256, 512, 512), 3.52 ms at (1024, 256, 256)
+// on one H100 80GB HBM3, 700 W).  This design takes smem's diagonal
+// factorization and products, and cuts the device traffic:
+//   - a CTA holds as many tiles as its shared memory takes (14 in float32,
+//     7 in float64): the diagonal block, panel slots, and a staging tile
+//     per group; 1 CTA an SM;
+//   - Cholesky, right-looking: the panel L[i][b]^T stays in the slots for
+//     the whole trailing update (pairs of chunks of it where it does not
+//     fit: N > 640 in float32, N > 192 in float64), so step b reads and
+//     writes each tile it updates once; the first step reads a itself, so
+//     there is no padded copy.  Each thread copies its own elements of its
+//     group's next tile (cp.async) while the current product runs;
+//   - W = L^{-1} left-looking, one block column per group down the column,
+//     and W^T W, one output block per group: the groups run on their own
+//     (named barriers), two staging tiles each, so one group's copies
+//     overlap the others' products.
+// Measured on one H100 80GB HBM3 (700 W), float32: 1.816 ms at
+// (256, 512, 512) against the 0.513 ms operations bound (the first version
+// 5.045 in the same run), 1.618 ms at (1024, 256, 256) (first 3.533, smem
+// 1.542); of a CTA's 1.77M cycles at (256, 512, 512) the diagonal blocks
+// take 11%, the panel 9%, the trailing update 22%, the triangular inverse
+// 28%, W^T W 30%: a product round of four groups takes 14-17k cycles
+// whether its operands stream (W, W^T W) or sit in the slots (the
+// trailing update), so the products' issue, not the device traffic, now
+// sets the pace (PERF.md, section 6).
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after the launch, 0 on success.
@@ -93,8 +117,8 @@ constexpr int BS = 64;
 constexpr int TILE = BS * BS;
 constexpr int THREADS = 256;
 
-// Phase profile of the smem kernel, built only with -DBLOCKED_CHOL_PROFILE
-// (scamlgp_tpu_torch/profile_blocked_chol.py): after a CTA-wide barrier at
+// Phase profile of either kernel, built only with -DBLOCKED_CHOL_PROFILE
+// (scamlgp_tpu_torch/profile_kernels.py phases): after a CTA-wide barrier at
 // each phase's end, thread 0 adds the phase's clock64() cycles to its
 // total; at the end every CTA adds its totals, and a count of 1, to
 // g_phase_cycles.  The default build has no barrier and no stamp.
@@ -132,181 +156,16 @@ __device__ unsigned long long g_phase_cycles[PH_COUNT + 1];
   } while (0)
 #endif
 
-// Element (r, c) of a 64 x 64 tile in shared memory.  The XOR keeps each row
-// a permutation of itself and puts the 32 rows of a column in 32 banks.
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * BS + (c ^ (r & 31));
-}
-
-__device__ __forceinline__ float sqrt_of(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_of(double x) { return sqrt(x); }
 __device__ __forceinline__ float rsqrt_of(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_of(double x) { return rsqrt(x); }
 __device__ __forceinline__ float log_of(float x) { return logf(x); }
 __device__ __forceinline__ double log_of(double x) { return log(x); }
-
-// Each thread owns a 4 x 4 register tile of a 64 x 64 result: rows
-// ty + 16 i and columns tx + 16 j.
-template <typename T>
-struct Acc {
-  T v[4][4];
-};
-
-template <typename T>
-__device__ __forceinline__ void zero(Acc<T>& acc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc.v[i][j] = T(0);
-}
-
-// acc (+|-)= op(A) op(B), op(X) = X or X^T, for tiles in shared memory.
-template <typename T, bool TA, bool TB, bool SUB>
-__device__ __forceinline__ void tile_mma(Acc<T>& acc, const T* A, const T* B) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int k = 0; k < BS; ++k) {
-    T a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      a[i] = TA ? A[sw(k, r)] : A[sw(r, k)];
-      if (SUB) a[i] = -a[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      b[j] = TB ? B[sw(c, k)] : B[sw(k, c)];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc.v[i][j] = fma(a[i], b[j], acc.v[i][j]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void acc_to_tile(const Acc<T>& acc, T* t) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t[sw(ty + 16 * i, tx + 16 * j)] = acc.v[i][j];
-}
-
-// A tile of a row-major matrix in device memory with leading dimension ld.
-template <typename T>
-__device__ __forceinline__ void acc_from_global(Acc<T>& acc, const T* g,
-                                                int ld) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc.v[i][j] = g[static_cast<size_t>(ty + 16 * i) * ld + tx + 16 * j];
-}
-
-// Writes the register tile to rows r0.., columns c0.. of an n x n matrix,
-// dropping what falls past n.
-template <typename T>
-__device__ __forceinline__ void acc_to_global(const Acc<T>& acc, T* g, int n,
-                                              int r0, int c0) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (r < n && c < n) g[static_cast<size_t>(r) * n + c] = acc.v[i][j];
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void tile_from_global(T* t, const T* g, int ld) {
-  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
-    const int r = idx >> 6, c = idx & 63;
-    t[sw(r, c)] = g[static_cast<size_t>(r) * ld + c];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void tile_to_global(const T* t, T* g, int ld) {
-  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
-    const int r = idx >> 6, c = idx & 63;
-    g[static_cast<size_t>(r) * ld + c] = t[sw(r, c)];
-  }
-}
-
-// The transpose of tile t to rows r0.., columns c0.. of an n x n matrix,
-// dropping what falls past n.  Reads columns of t, writes rows of g.
-template <typename T>
-__device__ __forceinline__ void tile_t_to_global(const T* t, T* g, int n,
-                                                 int r0, int c0) {
-  for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
-    const int r = idx >> 6, c = idx & 63;
-    if (r0 + r < n && c0 + c < n)
-      g[static_cast<size_t>(r0 + r) * n + c0 + c] = t[sw(c, r)];
-  }
-}
 
 // Element (R, C) of the n x n matrix a padded with the identity past n.
 template <typename T>
 __device__ __forceinline__ T padded(const T* a, int n, int R, int C) {
   return (R < n && C < n) ? a[static_cast<size_t>(R) * n + C]
                           : (R == C ? T(1) : T(0));
-}
-
-// In place: the lower triangle of P (SPD) becomes its Cholesky factor L
-// (the upper triangle is never read), and X becomes L^{-1} (zero above the
-// diagonal).  Step j downdates the trailing block with column j and applies
-// the inverse of the j-th elementary factor to X; the scaling of column j
-// of P and row j of X waits for step j + 1, which touches neither, so each
-// step needs one barrier.  Returns the sum of log pivots (every thread).
-template <typename T>
-__device__ T chol_inv_tile(T* P, T* X) {
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < TILE; idx += THREADS) {
-    const int r = idx >> 6, c = idx & 63;
-    X[sw(r, c)] = (r == c) ? T(1) : T(0);
-  }
-  T logdet = T(0), prev_inv = T(0), prev_sqrt = T(0);
-  for (int j = 0; j <= BS; ++j) {
-    __syncthreads();
-    if (j > 0 && tid < BS) {
-      const int p = j - 1;
-      if (tid > p) {
-        P[sw(tid, p)] *= prev_inv;
-      } else {
-        if (tid == p) P[sw(p, p)] = prev_sqrt;
-        X[sw(p, tid)] *= prev_inv;
-      }
-    }
-    if (j == BS) break;
-    const T d = P[sw(j, j)];
-    const T s = sqrt_of(d);
-    const T inv = T(1) / s;
-    logdet += log_of(d);
-    const int m = BS - 1 - j;
-    for (int t = tid; t < m * m; t += THREADS) {
-      const int i = j + 1 + t / m, k = j + 1 + t % m;
-      if (k <= i) P[sw(i, k)] -= (P[sw(i, j)] * inv) * (P[sw(k, j)] * inv);
-    }
-    const int w = j + 1;
-    for (int t = tid; t < m * w; t += THREADS) {
-      const int i = j + 1 + t / w, c = t % w;
-      X[sw(i, c)] -= (P[sw(i, j)] * inv) * (X[sw(j, c)] * inv);
-    }
-    prev_inv = inv;
-    prev_sqrt = s;
-  }
-  __syncthreads();
-  return logdet;
 }
 
 // ---------------------------------------------------------------------------
@@ -484,8 +343,8 @@ __device__ __forceinline__ void acc_t_to_out(const T (&acc)[8][8], T* out,
 // then downdates all its P elements with both columns' l = P[:, k] /
 // sqrt(d) (elements above the diagonal or left of the column are never
 // read again), its X rows below each pivot, and scales rows j and j + 1
-// of X; one barrier for two steps.  Each element's arithmetic is
-// chol_inv_tile's, with the plain version's rsqrt for 1 / sqrt(d).
+// of X; one barrier for two steps.  Each element gets the plain version's
+// rank-1 downdate, with its rsqrt for 1 / sqrt(d).
 template <typename T>
 __device__ T chol_inv_regs(T* slot, T* vec) {
   const int dx = threadIdx.x & 15, dy = threadIdx.x >> 4;
@@ -764,112 +623,316 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// global variant: one matrix per CTA, worked on in place in device memory.
+// global variant: one matrix per CTA, its blocks in device memory.
 // ---------------------------------------------------------------------------
 
-// work: (B, np, np), the padded copy the kernel works in; out: (B, n, n).
-// They are one buffer when n == np: the last phase then overwrites each W
-// block only after the last product that reads it.
+// The group's 64 threads wait for each other (named barrier 1 + g; 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(g + 1) : "memory");
+}
+
+// One tile of the work buffer (contiguous, in swz order) to dst, 16 bytes a
+// copy, copies t, t + nt, ... of it.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    blocked_chol_global_kernel(const T* __restrict__ a, T* work, T* out,
-                               T* __restrict__ logdet, int n, int nb) {
-  extern __shared__ double smem_d[];
-  T* s0 = reinterpret_cast<T*>(smem_d);
-  T* s1 = s0 + TILE;
-  T* s2 = s1 + TILE;
-  T* s3 = s2 + TILE;
-  const int np = nb * BS;
-  const T* A = a + static_cast<size_t>(blockIdx.x) * n * n;
-  T* G = work + static_cast<size_t>(blockIdx.x) * np * np;
-  T* O = out + static_cast<size_t>(blockIdx.x) * n * n;
-  auto g = [&](int i, int j) {
-    return G + static_cast<size_t>(i * BS) * np + j * BS;
-  };
+__device__ __forceinline__ void tile_copy_async(T* dst, const T* src, int t,
+                                                int nt) {
+  constexpr int kChunks = TILE * static_cast<int>(sizeof(T)) / 16;
+  for (int q = t; q < kChunks; q += nt)
+    cp_async16(reinterpret_cast<char*>(dst) + 16 * q,
+               reinterpret_cast<const char*>(src) + 16 * q);
+}
 
-  for (int i = 0; i < nb; ++i)
-    for (int j = 0; j <= i; ++j) {
-      T* t = g(i, j);
-      for (int idx = threadIdx.x; idx < TILE; idx += THREADS) {
-        const int r = idx >> 6, c = idx & 63;
-        t[static_cast<size_t>(r) * np + c] =
-            padded(A, n, i * BS + r, j * BS + c);
-      }
+// Elements (r, c .. c + 3) of tile (i, j) of the n x n row-major a, padded
+// with the identity, to their swz place in dst: one or two 16-byte copies
+// where vec and the chunk lies inside a, else plain loads.
+template <typename T>
+__device__ __forceinline__ void chunk_from_a(T* dst, const T* a, int n,
+                                             int vec, int i, int j, int r,
+                                             int c) {
+  const int R = i * BS + r, C = j * BS + c;
+  T* d = dst + swz(r, c);
+  if (vec && R < n && C < n) {
+    const T* src = a + static_cast<size_t>(R) * n + C;
+#pragma unroll
+    for (int h = 0; h < static_cast<int>(sizeof(T)) / 4; ++h)
+      cp_async16(d + h * (16 / sizeof(T)), src + h * (16 / sizeof(T)));
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) d[u] = padded(a, n, R, C + u);
+  }
+}
+
+// Tile (i, j) of a, chunks t, t + nt, ...
+template <typename T>
+__device__ __forceinline__ void tile_from_a_async(T* dst, const T* a, int n,
+                                                  int vec, int i, int j,
+                                                  int t, int nt) {
+  for (int q = t; q < TILE / 4; q += nt)
+    chunk_from_a(dst, a, n, vec, i, j, q >> 4, (q & 15) << 2);
+}
+
+// The 16 chunks of a tile that acc_load reads for thread (ty, tx): from a
+// work tile, or from tile (i, j) of a.
+template <typename T>
+__device__ __forceinline__ void own_copy_async(T* dst, const T* src, int ty,
+                                               int tx) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = swz(own(ty, e), 32 * h + 4 * tx);
+#pragma unroll
+      for (int w = 0; w < static_cast<int>(sizeof(T)) / 4; ++w)
+        cp_async16(dst + o + w * (16 / sizeof(T)),
+                   src + o + w * (16 / sizeof(T)));
     }
-  __syncthreads();
+}
 
+template <typename T>
+__device__ __forceinline__ void own_from_a_async(T* dst, const T* a, int n,
+                                                 int vec, int i, int j,
+                                                 int ty, int tx) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      chunk_from_a(dst, a, n, vec, i, j, own(ty, e), 32 * h + 4 * tx);
+}
+
+// The work buffer of a matrix: nb^2 tiles of 64 x 64, each in swz order;
+// the lower blocks L(i, j) first, then the strictly lower blocks of W.
+__device__ __forceinline__ int lower_tile(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// Picks, for each of cnt items of falling cost, the least loaded of ng
+// groups (the first on a tie); returns the item's group.  Every thread
+// runs it alike, so no group needs to tell another.
+struct Balance {
+  int load[GROUPS] = {};
+  __device__ int take(int cost, int ng) {
+    int best = 0;
+    for (int q = 1; q < ng; ++q)
+      if (load[q] < load[best]) best = q;
+    load[best] += cost;
+    return best;
+  }
+};
+
+// work: (B, np, np) elements, np = 64 nb, laid out as nb^2 tiles (see
+// lower_tile); out: (B, n, n).  Shared memory holds `tiles` 64 x 64 tiles:
+// the diagonal block, `tiles - 5` panel slots, then one staging tile per
+// group (the diagonal factorization's vectors share the last one).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    blocked_chol_global_kernel(const T* __restrict__ a, T* __restrict__ work,
+                               T* __restrict__ out, T* __restrict__ logdet,
+                               int n, int nb, int tiles, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_tiles[];
+  T* const S = reinterpret_cast<T*>(smem_tiles);
+  T* const D = S;
+  T* const P = S + TILE;
+  const int cap = tiles - 5;  // panel slots
+  T* const stage = S + static_cast<size_t>(1 + cap) * TILE;
+  T* const vecs = stage + 3 * TILE;
+  const T* A = a + static_cast<size_t>(blockIdx.x) * n * n;
+  T* G = work + static_cast<size_t>(blockIdx.x) * nb * nb * TILE;
+  T* O = out + static_cast<size_t>(blockIdx.x) * n * n;
+  const int tid = threadIdx.x;
+  const int g = tid >> 6, gt = tid & 63;
+  const int ty = gt >> 3, tx = gt & 7;
+  const int k_low = (tid & 32) ? BS : 48;
+  T* const mine = stage + g * TILE;
+  auto L = [&](int i, int j) { return G + lower_tile(i, j) * TILE; };
+  auto W = [&](int i, int j) {
+    return G + (nb * (nb + 1) / 2 + i * (i - 1) / 2 + j) * TILE;
+  };
+  PROF_DECL
+  PROF_MARK(PH_LOAD);
+
+  // Right-looking blocked Cholesky.  Step b reads each tile it updates
+  // once from the work buffer (from a at b = 0) and writes it once.
   T ld = T(0);
   for (int b = 0; b < nb; ++b) {
-    tile_from_global(s0, g(b, b), np);
-    ld += chol_inv_tile(s0, s1);  // s1 = Linv[b][b] until the next b
-    tile_to_global(s1, g(b, b), np);
-    for (int i = b + 1; i < nb; ++i) {
-      tile_from_global(s0, g(i, b), np);
-      __syncthreads();
-      Acc<T> acc;
-      zero(acc);
-      tile_mma<T, false, true, false>(acc, s0, s1);
-      acc_to_global(acc, g(i, b), np, 0, 0);
-      __syncthreads();
+    const int m = nb - 1 - b;  // panel tiles
+    if (b == 0)
+      tile_from_a_async(D, A, n, vec, 0, 0, tid, THREADS);
+    else
+      tile_copy_async(D, L(b, b), tid, THREADS);
+    cp_async_wait_all();
+    __syncthreads();
+    ld += chol_inv_regs(D, vecs);
+    __syncthreads();
+    for (int q = tid; q < TILE * static_cast<int>(sizeof(T)) / 16;
+         q += THREADS)
+      reinterpret_cast<int4*>(L(b, b))[q] = reinterpret_cast<const int4*>(D)[q];
+    PROF_MARK(PH_DIAG);
+
+    // panel L[i][b]^T = Linv A[i][b]^T, tile p = i - b - 1 by group p % 4:
+    // in slot p where the panel fits the slots, else in the group's
+    // staging tile; to the work buffer either way
+    const bool resident = m <= cap;
+    if (resident) {
+      for (int p = g; p < m; p += GROUPS) {
+        if (b == 0)
+          tile_from_a_async(P + p * TILE, A, n, vec, b + 1 + p, b, gt, 64);
+        else
+          tile_copy_async(P + p * TILE, L(b + 1 + p, b), gt, 64);
+      }
+      cp_async_wait_all();
+      group_sync(g);
     }
-    for (int i = b + 1; i < nb; ++i) {
-      tile_from_global(s0, g(i, b), np);
-      for (int j = b + 1; j <= i; ++j) {
-        const T* right = s0;
-        if (j != i) {
-          tile_from_global(s2, g(j, b), np);
-          right = s2;
+    for (int p = g; p < m; p += GROUPS) {
+      const int i = b + 1 + p;
+      T* X = resident ? P + p * TILE : mine;
+      if (!resident) {
+        if (b == 0)
+          tile_from_a_async(X, A, n, vec, i, b, gt, 64);
+        else
+          tile_copy_async(X, L(i, b), gt, 64);
+        cp_async_wait_all();
+        group_sync(g);
+      }
+      T acc[8][8];
+      zero8(acc);
+      group_mma<T, true, true, false>(acc, D, X, ty, tx, k_low);
+      group_sync(g);
+      if (resident) acc_store(acc, X, ty, tx);
+      acc_store(acc, L(i, b), ty, tx);
+    }
+    __syncthreads();
+    PROF_MARK(PH_TRSM);
+
+    // trailing update A[i][j] -= L[i][b] L[j][b]^T, b < j <= i, with both
+    // panel tiles on chip: all of the panel where it fits the slots, else
+    // pairs of chunks of h tiles, (ci, cj) in slots [0, h) and [h, 2h).
+    // The updated tiles go to the groups in turn; each thread copies its
+    // own elements of a group's next tile into the group's staging tile
+    // while the current one's product runs.
+    const int h = resident ? max(m, 1) : cap / 2;
+    const int nc = (m + h - 1) / h;
+    for (int ci = 0; ci < nc; ++ci)
+      for (int cj = 0; cj <= ci; ++cj) {
+        if (!resident) {
+          __syncthreads();
+          for (int p = ci * h; p < min(m, ci * h + h); ++p)
+            tile_copy_async(P + (p - ci * h) * TILE, L(b + 1 + p, b), tid,
+                            THREADS);
+          if (cj != ci)
+            for (int p = cj * h; p < min(m, cj * h + h); ++p)
+              tile_copy_async(P + (h + p - cj * h) * TILE, L(b + 1 + p, b),
+                              tid, THREADS);
+          cp_async_wait_all();
+          __syncthreads();
         }
-        __syncthreads();
-        Acc<T> acc;
-        acc_from_global(acc, g(i, j), np);
-        tile_mma<T, false, true, true>(acc, s0, right);
-        acc_to_global(acc, g(i, j), np, 0, 0);
-        __syncthreads();
+        auto slot = [&](int p) {
+          return P + ((p / h == ci ? 0 : h) + p % h) * TILE;
+        };
+        auto fetch = [&](int pi, int pj) {
+          if (b == 0)
+            own_from_a_async(mine, A, n, vec, b + 1 + pi, b + 1 + pj, ty, tx);
+          else
+            own_copy_async(mine, L(b + 1 + pi, b + 1 + pj), ty, tx);
+        };
+        int cur_i = -1, cur_j = -1, q = 0;
+        auto update = [&](bool more, int ni, int nj) {
+          T acc[8][8];
+          cp_async_wait_all();
+          acc_load(acc, mine, ty, tx);
+          if (more) fetch(ni, nj);
+          group_mma<T, true, false, true>(acc, slot(cur_i), slot(cur_j), ty,
+                                          tx, BS);
+          acc_store(acc, L(b + 1 + cur_i, b + 1 + cur_j), ty, tx);
+        };
+        for (int pi = ci * h; pi < min(m, ci * h + h); ++pi)
+          for (int pj = cj * h; pj <= min(pi, cj * h + h - 1); ++pj, ++q) {
+            if (q % GROUPS != g) continue;
+            if (cur_i < 0)
+              fetch(pi, pj);
+            else
+              update(true, pi, pj);
+            cur_i = pi;
+            cur_j = pj;
+          }
+        if (cur_i >= 0) update(false, 0, 0);
+      }
+    __syncthreads();
+    PROF_MARK(PH_SYRK);
+  }
+
+  // W = L^{-1}: W[i][j] = -Linv_i sum_{j<=k<i} L[i][k] W[k][j] (W[j][j] =
+  // Linv_j), column j by one group, down the column, the columns dealt
+  // out by cost.  The work buffer holds L[i][k]^T, Linv_i^T, and W[i][j]
+  // in its own tiles.  Groups run on their own (named barriers), two
+  // staging tiles each; ng groups fit the shared memory.
+  const int ng = min(GROUPS, tiles / 2);
+  T* const X = S + (2 * g) * TILE;
+  T* const Y = X + TILE;
+  {
+    Balance bal;
+    for (int j = 0; j < nb; ++j) {
+      const int mj = nb - 1 - j;
+      if (bal.take(mj * (mj + 3) / 2, ng) != g || g >= ng) continue;
+      for (int i = j + 1; i < nb; ++i) {
+        T acc[8][8];
+        zero8(acc);
+        for (int k = j; k < i; ++k) {
+          group_sync(g);
+          tile_copy_async(X, L(i, k), gt, 64);
+          tile_copy_async(Y, k == j ? L(j, j) : W(k, j), gt, 64);
+          cp_async_wait_all();
+          group_sync(g);
+          if (k == j)
+            group_mma<T, true, true, false>(acc, X, Y, ty, tx, BS);
+          else
+            group_mma<T, true, false, false>(acc, X, Y, ty, tx, BS);
+        }
+        group_sync(g);
+        tile_copy_async(X, L(i, i), gt, 64);
+        acc_store(acc, Y, ty, tx);
+        cp_async_wait_all();
+        group_sync(g);
+        zero8(acc);
+        group_mma<T, true, false, true>(acc, X, Y, ty, tx, k_low);
+        acc_store(acc, W(i, j), ty, tx);
       }
     }
   }
+  __syncthreads();
+  PROF_MARK(PH_TRINV);
 
-  for (int j = 0; j < nb; ++j)
-    for (int i = j + 1; i < nb; ++i) {
-      Acc<T> acc;
-      zero(acc);
-      for (int k = j; k < i; ++k) {
-        tile_from_global(s0, g(i, k), np);
-        tile_from_global(s2, g(k, j), np);
-        __syncthreads();
-        tile_mma<T, false, false, false>(acc, s0, s2);
-        __syncthreads();
+  // A^{-1}[i][j] = sum_{k >= i} W[k][i]^T W[k][j] to both halves, the
+  // blocks dealt out by cost (nb - i products)
+  {
+    Balance bal;
+    for (int i = 0; i < nb; ++i)
+      for (int j = 0; j <= i; ++j) {
+        if (bal.take(nb - i, ng) != g || g >= ng) continue;
+        T acc[8][8];
+        zero8(acc);
+        for (int k = i; k < nb; ++k) {
+          group_sync(g);
+          const T* left = k == i ? L(i, i) : W(k, i);
+          tile_copy_async(X, left, gt, 64);
+          if (j != i) tile_copy_async(Y, k == i ? W(i, j) : W(k, j), gt, 64);
+          cp_async_wait_all();
+          group_sync(g);
+          if (k == i && j == i)
+            group_mma<T, false, true, false>(acc, X, X, ty, tx, BS);
+          else if (k == i)
+            group_mma<T, false, false, false>(acc, X, Y, ty, tx, BS);
+          else
+            group_mma<T, true, false, false>(acc, X, j == i ? X : Y, ty, tx,
+                                             BS);
+        }
+        acc_to_out(acc, O, n, i * BS, j * BS, ty, tx, vec != 0);
+        if (i != j) acc_t_to_out(acc, O, n, i * BS, j * BS, ty, tx);
       }
-      acc_to_tile(acc, s3);
-      tile_from_global(s0, g(i, i), np);
-      __syncthreads();
-      zero(acc);
-      tile_mma<T, false, false, true>(acc, s0, s3);
-      acc_to_global(acc, g(i, j), np, 0, 0);
-      __syncthreads();
-    }
-
-  for (int i = 0; i < nb; ++i)
-    for (int j = 0; j <= i; ++j) {
-      Acc<T> acc;
-      zero(acc);
-      for (int k = i; k < nb; ++k) {
-        tile_from_global(s0, g(k, i), np);
-        if (j != i) tile_from_global(s2, g(k, j), np);
-        __syncthreads();
-        tile_mma<T, true, false, false>(acc, s0, j != i ? s2 : s0);
-        __syncthreads();
-      }
-      acc_to_global(acc, O, n, i * BS, j * BS);
-      if (i != j) {
-        acc_to_tile(acc, s3);
-        __syncthreads();
-        tile_t_to_global(s3, O, n, j * BS, i * BS);
-      }
-      __syncthreads();
-    }
-  if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+  }
+  if (tid == 0) logdet[blockIdx.x] = ld;
+  PROF_MARK(PH_WTW);
+  PROF_FLUSH();
 }
 
 // Lets kernel use up to the device's opt-in shared memory per block.  The
@@ -916,6 +979,9 @@ int launch_smem(const void* a, void* inv, void* logdet, long long batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// work: (batch, np, np) elements, np = 64 ceil(n / 64), apart from a and
+// inv.  The kernel takes all the shared memory a CTA may have: as many
+// 64 x 64 tiles as fit, at least seven.
 template <typename T>
 int launch_global(const void* a, void* work, void* inv, void* logdet,
                   long long batch, int n, void* stream) {
@@ -923,13 +989,23 @@ int launch_global(const void* a, void* work, void* inv, void* logdet,
   if (batch <= 0) return 0;
   cudaError_t err = allow_max_smem(blocked_chol_global_kernel<T>, done);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, optin = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = optin / static_cast<int>(TILE * sizeof(T));
+  if (tiles < 7) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + BS - 1) / BS;
-  const size_t smem = static_cast<size_t>(4) * TILE * sizeof(T);
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(inv) % 16 == 0;
   blocked_chol_global_kernel<T>
-      <<<static_cast<unsigned int>(batch), THREADS, smem,
+      <<<static_cast<unsigned int>(batch), THREADS,
+         static_cast<size_t>(tiles) * TILE * sizeof(T),
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(a), static_cast<T*>(work),
-          static_cast<T*>(inv), static_cast<T*>(logdet), n, nb);
+          static_cast<T*>(inv), static_cast<T*>(logdet), n, nb, tiles, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -960,7 +1036,7 @@ int blocked_chol_inverse_global_f64(const void* a, void* work, void* inv,
 }
 
 #ifdef BLOCKED_CHOL_PROFILE
-// The smem kernel's phase totals since the last reset: PH_COUNT cycle sums
+// The phase totals since the last reset: PH_COUNT cycle sums
 // and the number of CTAs that added to them.
 int blocked_chol_profile_read(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(

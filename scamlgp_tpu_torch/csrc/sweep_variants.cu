@@ -16,29 +16,43 @@
 // operations, N/8 operations per byte, below the H100's float32 ridge
 // (about 20) for every N <= 128: the roofline bound is the bytes.  What
 // limits the sweep in practice is its serial chain of pivots, each a pass
-// over the matrix between block-wide barriers.  So every kernel keeps one
-// matrix in one CTA's dynamic shared memory for the whole chain (64 KiB in
-// float32, 128 KiB in float64 at N = 128, plus the scheme's vectors), device
-// memory is touched once each way, and the batch fills the 132 SMs with
-// independent CTAs.  What each scheme changes is the chain:
+// over the matrix.  Device memory is touched once each way, and the batch
+// fills the 132 SMs with independent CTAs.  What each scheme changes is
+// the chain:
 //
-// - fused: per pivot, one staging pass writes cd = col/d, u = e_k - row and
-//   w = row/d - e_k (1/d + 2) into shared vectors; then one branch-free
-//   pass A[i][j] += cd[i] u[j] + e_k[i] w[j].  Two barriers per pivot, as
-//   in sweep_inverse.cu, with no selects in the bulk pass.
+// - fused: A' = (A + cd u) + e_k w with cd = col / d, u = e_k - row and
+//   w = row / d - e_k (1/d + 2), the term e_k[i] w[j] kept for every row (it
+//   is 0 w[j], whose sign a zero of A + cd u takes on), so every element
+//   takes three operations, select's two plus one.  The layout is
+//   select's (sweep_inverse.cu): at N <= 32 a warp or part of one a
+//   matrix, lane j column j in registers, the pivot column by __shfl_sync,
+//   several matrices a CTA, no shared memory and no barrier; at
+//   32 < N <= 128 a CTA of 16 x 16 threads with R x R register tiles, the
+//   column and row of pivot k + 1 written by their owners into
+//   double-buffered shared vectors, one barrier a pivot, the pivot loop
+//   split as k = 16 kc + kt.  Each thread forms cd for its rows and u, w,
+//   0 w for its columns from the two vectors.  The first version (one
+//   matrix in a CTA's shared memory, thread t owning column t % n, four
+//   shared-memory accesses an element update, a staging pass and two
+//   barriers a pivot) took 1.513 ms at (1024, 128, 128); this one 0.452 ms
+//   there (select 0.362), 1.757 ms at (4096, 128, 128) (first 5.783) and
+//   0.0234 ms at (1024, 32, 32) (first 0.0410), one H100 80GB HBM3,
+//   700 W (PERF.md, section 6);
 // - pair: per trip of two pivots p, q = p + 1, warp 0 alone rebuilds q's
 //   column, row and pivot after p from p's borders in O(N)
 //   (pallas_sweep.py:194-205) and writes the six border vectors; then the
 //   whole CTA applies both rank-1 terms and the four border writes in one
-//   pass.  Two barriers per trip: half as many per pivot.
-// - blocked: per panel of 32 rows, the 32 pivots are swept element by
-//   element over the 32 x N slab only (a quarter of the matrix at N = 128);
-//   then the other rows get [R | S] -> [R P^-1 | S - R P^-1 Q] as one
-//   rank-32 product, -R W with W = [-P^-1 | P^-1 Q] the swept panel, each
-//   thread holding a 4 x 4 tile of outputs in registers.  R is copied to a
-//   scratch (N, 33) array first, since the product overwrites it.  The
-//   arithmetic stays on the CUDA cores: TF32 tensor cores would round the
-//   float32 result beyond the plain version's.
+//   pass over one matrix in the CTA's shared memory.  Two barriers per
+//   trip: half as many per pivot as the first fused kernel.
+// - blocked: one matrix in the CTA's shared memory; per panel of 32 rows,
+//   the 32 pivots are swept element by element over the 32 x N slab only
+//   (a quarter of the matrix at N = 128); then the other rows get
+//   [R | S] -> [R P^-1 | S - R P^-1 Q] as one rank-32 product, -R W with
+//   W = [-P^-1 | P^-1 Q] the swept panel, each thread holding a 4 x 4 tile
+//   of outputs in registers.  R is copied to a scratch (N, 33) array
+//   first, since the product overwrites it.  The arithmetic stays on the
+//   CUDA cores: TF32 tensor cores would round the float32 result beyond
+//   the plain version's.
 //
 // No pivoting: the unswept part of an SPD matrix stays SPD, so every d is
 // positive; a non-SPD input gives a non-positive d and a NaN log|A|.
@@ -46,11 +60,13 @@
 // Built without FMA contraction (-fmad=false, cuda_build.SOURCE_FLAGS), so
 // that each update rounds as the plain PyTorch version's does: with
 // contraction the MLL of nearly singular float32 systems lay 5x farther
-// from float64 than the plain version's (PERF.md, section 6).
+// from float64 than the plain version's (PERF.md, section 6); fused in
+// float32 equals ops/sweep.py::_sweep_fused bit for bit.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for an N it does not take), 0 on
-// success.
+// success.  sweep_fused_geometry reports the fused launch geometry that
+// ops/sweep.py::launch_geometry mirrors.
 
 #include <cuda_runtime.h>
 
@@ -77,54 +93,200 @@ __device__ __forceinline__ void store_negated(const T* A, T* __restrict__ inv,
 }
 
 // ---------------------------------------------------------------------------
-// fused
+// fused: select's two paths (sweep_inverse.cu), with fused's arithmetic
 // ---------------------------------------------------------------------------
 
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpPathThreads = 128;
+constexpr int kGrid = 16;
+constexpr int kCtaPathThreads = kGrid * kGrid;
+
+// Pivot k's terms for column j, as the plain version forms them:
+// u = e_k - row, w = row / d - e_k (1/d + 2), z = 0 w (the e_k[i] w[j] term
+// of every row i != k).  e is e_k[j]; ip2 = 1/d + 2.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sweep_fused_kernel(const T* __restrict__ a, T* __restrict__ inv,
-                       T* __restrict__ logdet, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* A = reinterpret_cast<T*>(smem_raw);
-  T* cd = A + n * n;
-  T* u = cd + n;
-  T* w = u + n;
-  const int nn = n * n;
-  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
-  // each thread updates column j of rows i0, i0 + rstep, ...
-  const int j = threadIdx.x % n;
-  const int i0 = threadIdx.x / n;
-  const int rstep = blockDim.x / n;
+__device__ __forceinline__ void fused_terms(T rw, T e, T inv_d, T ip2, T& u,
+                                            T& w, T& z) {
+  u = e - rw;
+  w = rw * inv_d - e * ip2;
+  z = T(0) * w;
+}
 
-  load_matrix(a + base, A, nn);
+// N <= 32: CAP lanes own one matrix, lane j column j in CAP registers.
+template <typename T, int CAP>
+__global__ void __launch_bounds__(kWarpPathThreads)
+    sweep_fused_warp_kernel(const T* __restrict__ a, T* __restrict__ inv,
+                            T* __restrict__ logdet, long long batch, int n) {
+  const int j = threadIdx.x & (CAP - 1);
+  const long long m =
+      (static_cast<long long>(blockIdx.x) * kWarpPathThreads + threadIdx.x) /
+      CAP;
+  // every lane takes part in the shuffles; only live lanes touch memory
+  const bool live = m < batch && j < n;
+  const size_t base = static_cast<size_t>(m) * n * n + j;
+
+  T v[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i)
+    v[i] = (live && i < n) ? a[base + static_cast<size_t>(i) * n] : T(0);
+
   T ld = T(0);
-  __syncthreads();
-
-  for (int k = 0; k < n; ++k) {
-    const T d = A[k * n + k];
-    const T inv_d = T(1) / d;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const T e = (i == k) ? T(1) : T(0);
-      const T r = A[k * n + i];
-      cd[i] = A[i * n + k] * inv_d;
-      u[i] = e - r;
-      w[i] = r * inv_d - e * (inv_d + T(2));
-    }
-    if (threadIdx.x == 0) ld += log_of(d);
-    __syncthreads();
-    if (i0 < rstep) {
-      const T uj = u[j];
-      const T wj = w[j];
-      for (int i = i0; i < n; i += rstep) {
-        const T e = (i == k) ? T(1) : T(0);
-        A[i * n + j] = A[i * n + j] + cd[i] * uj + e * wj;
+#pragma unroll
+  for (int k = 0; k < CAP; ++k) {
+    if (k < n) {
+      const T d = __shfl_sync(kFullMask, v[k], k, CAP);
+      const T inv_d = T(1) / d;
+      T u, w, z;
+      fused_terms(v[k], j == k ? T(1) : T(0), inv_d, inv_d + T(2), u, w, z);
+#pragma unroll
+      for (int i = 0; i < CAP; ++i) {
+        const T cd = __shfl_sync(kFullMask, v[i], k, CAP) * inv_d;
+        v[i] = (v[i] + cd * u) + (i == k ? w : z);
       }
+      ld += log_of(d);
     }
-    __syncthreads();
   }
 
-  store_negated(A, inv + base, nn);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < CAP; ++i)
+      if (i < n) inv[base + static_cast<size_t>(i) * n] = -v[i];
+    if (j == 0) logdet[m] = ld;
+  }
+}
+
+// 32 < N <= 128: 16 x 16 threads own one matrix, thread (ty, tx) the R x R
+// elements at rows ty + 16 r and columns tx + 16 c.
+template <typename T, int R>
+__global__ void __launch_bounds__(kCtaPathThreads,
+                                  (sizeof(T) == 4 || R < 8) ? 2 : 1)
+    sweep_fused_cta_kernel(const T* __restrict__ a, T* __restrict__ inv,
+                           T* __restrict__ logdet, int n) {
+  constexpr int CAP = kGrid * R;
+  __shared__ T col_buf[2][CAP];
+  __shared__ T row_buf[2][CAP];
+  const int tx = threadIdx.x % kGrid;
+  const int ty = threadIdx.x / kGrid;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+
+  T v[R][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + kGrid * r, j = tx + kGrid * c;
+      v[r][c] = (i < n && j < n) ? a[base + static_cast<size_t>(i) * n + j]
+                                 : T(0);
+    }
+  if (tx == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) col_buf[0][ty + kGrid * r] = v[r][0];
+  if (ty == 0)
+#pragma unroll
+    for (int c = 0; c < R; ++c) row_buf[0][tx + kGrid * c] = v[0][c];
+  __syncthreads();
+
+  T ld = T(0);
+#pragma unroll
+  for (int kc = 0; kc < R; ++kc) {
+    const int kt_end = min(kGrid, n - kGrid * kc);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int buf = kt & 1;
+      const T d = row_buf[buf][kGrid * kc + kt];
+      const T inv_d = T(1) / d;
+      const T ip2 = inv_d + T(2);
+      T cd[R], u[R], z[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) cd[r] = col_buf[buf][ty + kGrid * r] * inv_d;
+      // row k (register row kc of the threads with ty == kt) adds w, every
+      // other row z
+      const bool row_k = ty == kt;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const T e = (c == kc && tx == kt) ? T(1) : T(0);
+        T w;
+        fused_terms(row_buf[buf][tx + kGrid * c], e, inv_d, ip2, u[c], w,
+                    z[c]);
+        v[kc][c] = (v[kc][c] + cd[kc] * u[c]) + (row_k ? w : z[c]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r == kc) continue;
+#pragma unroll
+        for (int c = 0; c < R; ++c) v[r][c] = (v[r][c] + cd[r] * u[c]) + z[c];
+      }
+      if (threadIdx.x == 0) ld += log_of(d);
+
+      // pivot k + 1's column and row, as they stand after pivot k
+      T* col_next = col_buf[buf ^ 1];
+      T* row_next = row_buf[buf ^ 1];
+      if (kt + 1 < kGrid) {
+        if (tx == kt + 1)
+#pragma unroll
+          for (int r = 0; r < R; ++r) col_next[ty + kGrid * r] = v[r][kc];
+        if (ty == kt + 1)
+#pragma unroll
+          for (int c = 0; c < R; ++c) row_next[tx + kGrid * c] = v[kc][c];
+      } else if (kc + 1 < R) {
+        const int kn = kc + 1 < R ? kc + 1 : kc;  // a constant once unrolled
+        if (tx == 0)
+#pragma unroll
+          for (int r = 0; r < R; ++r) col_next[ty + kGrid * r] = v[r][kn];
+        if (ty == 0)
+#pragma unroll
+          for (int c = 0; c < R; ++c) row_next[tx + kGrid * c] = v[kn][c];
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + kGrid * r, j = tx + kGrid * c;
+      if (i < n && j < n) inv[base + static_cast<size_t>(i) * n + j] = -v[r][c];
+    }
   if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+}
+
+// The fused kernel's launch geometry at n: {capacity, threads a CTA,
+// matrices a CTA}, select's rule (ops/sweep.py::launch_geometry).
+void fused_geometry(int n, int* out) {
+  const int cap = n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
+  const bool warp_path = cap <= 32;
+  out[0] = cap;
+  out[1] = warp_path ? kWarpPathThreads : kCtaPathThreads;
+  out[2] = warp_path ? kWarpPathThreads / cap : 1;
+}
+
+template <typename T>
+void launch_fused(const T* a, T* inv, T* logdet, long long batch, int n,
+                  cudaStream_t s) {
+  int g[3];
+  fused_geometry(n, g);
+  const unsigned int ctas =
+      static_cast<unsigned int>((batch + g[2] - 1) / g[2]);
+  switch (g[0]) {
+    case 8:
+      sweep_fused_warp_kernel<T, 8><<<ctas, g[1], 0, s>>>(a, inv, logdet,
+                                                          batch, n);
+      break;
+    case 16:
+      sweep_fused_warp_kernel<T, 16><<<ctas, g[1], 0, s>>>(a, inv, logdet,
+                                                           batch, n);
+      break;
+    case 32:
+      sweep_fused_warp_kernel<T, 32><<<ctas, g[1], 0, s>>>(a, inv, logdet,
+                                                           batch, n);
+      break;
+    case 64:
+      sweep_fused_cta_kernel<T, 4><<<ctas, g[1], 0, s>>>(a, inv, logdet, n);
+      break;
+    default:
+      sweep_fused_cta_kernel<T, 8><<<ctas, g[1], 0, s>>>(a, inv, logdet, n);
+      break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -324,30 +486,18 @@ __global__ void __launch_bounds__(kThreads)
 
 enum class Scheme { kFused, kPair, kBlocked };
 
+// Dynamic shared memory of the pair and blocked schemes (fused needs none).
 template <typename T>
 size_t smem_bytes(Scheme s, int n) {
   const size_t nn = static_cast<size_t>(n) * n;
-  switch (s) {
-    case Scheme::kFused:
-      return (nn + 3 * n) * sizeof(T);
-    case Scheme::kPair:
-      return (nn + 7 * n) * sizeof(T);
-    default:
-      return (nn + static_cast<size_t>(n) * kRbStride + kBlock + n) *
-             sizeof(T);
-  }
+  if (s == Scheme::kPair) return (nn + 7 * n) * sizeof(T);
+  return (nn + static_cast<size_t>(n) * kRbStride + kBlock + n) * sizeof(T);
 }
 
 template <typename T>
 void* kernel_of(Scheme s) {
-  switch (s) {
-    case Scheme::kFused:
-      return reinterpret_cast<void*>(sweep_fused_kernel<T>);
-    case Scheme::kPair:
-      return reinterpret_cast<void*>(sweep_pair_kernel<T>);
-    default:
-      return reinterpret_cast<void*>(sweep_blocked_kernel<T>);
-  }
+  if (s == Scheme::kPair) return reinterpret_cast<void*>(sweep_pair_kernel<T>);
+  return reinterpret_cast<void*>(sweep_blocked_kernel<T>);
 }
 
 // Lets the scheme's kernel use the shared memory it needs at the largest N
@@ -380,27 +530,24 @@ int launch(Scheme s, const void* a, void* inv, void* logdet, long long batch,
       (s == Scheme::kBlocked && n % kBlock != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* pa = static_cast<const T*>(a);
+  T* pinv = static_cast<T*>(inv);
+  T* pld = static_cast<T*>(logdet);
+  if (s == Scheme::kFused) {
+    launch_fused<T>(pa, pinv, pld, batch, n, st);
+    return static_cast<int>(cudaGetLastError());
+  }
   cudaError_t err = allow_max_smem<T>(s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nn = n * n;
   const int threads = nn >= kThreads ? kThreads : ((nn + 31) / 32) * 32;
   const size_t smem = smem_bytes<T>(s, n);
   const dim3 grid(static_cast<unsigned int>(batch));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* pa = static_cast<const T*>(a);
-  T* pinv = static_cast<T*>(inv);
-  T* pld = static_cast<T*>(logdet);
-  switch (s) {
-    case Scheme::kFused:
-      sweep_fused_kernel<T><<<grid, threads, smem, st>>>(pa, pinv, pld, n);
-      break;
-    case Scheme::kPair:
-      sweep_pair_kernel<T><<<grid, threads, smem, st>>>(pa, pinv, pld, n);
-      break;
-    default:
-      sweep_blocked_kernel<T><<<grid, threads, smem, st>>>(pa, pinv, pld, n);
-      break;
-  }
+  if (s == Scheme::kPair)
+    sweep_pair_kernel<T><<<grid, threads, smem, st>>>(pa, pinv, pld, n);
+  else
+    sweep_blocked_kernel<T><<<grid, threads, smem, st>>>(pa, pinv, pld, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -437,6 +584,9 @@ int sweep_blocked_f64(const void* a, void* inv, void* logdet, long long batch,
                       int n, void* stream) {
   return launch<double>(Scheme::kBlocked, a, inv, logdet, batch, n, stream);
 }
+
+// Writes {capacity, threads a CTA, matrices a CTA} of a fused launch at n.
+void sweep_fused_geometry(int n, int* out) { fused_geometry(n, out); }
 
 const char* sweep_variants_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

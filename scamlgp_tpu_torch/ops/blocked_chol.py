@@ -10,9 +10,10 @@ batch of SPD matrices A (B, N, N) to (A^{-1}, log|A|):
   - ``"smem"`` (the port of ``_make_kernel``, ``pallas_blocked_chol.py:225``)
     keeps the padded lower triangle of one matrix in one CTA's shared
     memory;
-  - ``"global"`` (the port of ``_make_hbm_kernel``, ``:244``) keeps it in
-    device memory and stages the 64 x 64 tiles of each block operation
-    through shared memory;
+  - ``"global"`` (the port of ``_make_hbm_kernel``, ``:244``) keeps the
+    blocks in a device buffer (``global_work``) and streams them through
+    shared memory, each block column of the factor held there while it
+    updates the rest;
 
   ``variant=None`` takes ``"smem"`` where the blocks fit a CTA's shared
   memory and ``"global"`` elsewhere;
@@ -102,10 +103,11 @@ def smem_bytes(N: int, itemsize: int) -> int:
 
 def choose_variant(N: int, itemsize: int, variant=None) -> str:
     """``variant``, checked against the shape, or the one that the bytes
-    pick: ``smem`` where the blocks fit one CTA, else ``global``.  The
-    bytes' pick is not the faster one everywhere: at N=256 in float32,
-    ``smem`` (one CTA per SM) measures slower than ``global`` on the H100
-    (PERF.md, kernel table)."""
+    pick: ``smem`` where the blocks fit one CTA, else ``global``.  Where
+    both run, the pick is the faster one: at N=256 in float32 ``smem``
+    took 1.542 ms at (1024, 256, 256) against ``global``'s 1.618 on one
+    H100 80GB HBM3, 700.00 W (``profile_kernels times``; PERF.md, kernel
+    table)."""
     fits = smem_bytes(N, itemsize) <= SMEM_LIMIT
     if variant is None:
         return "smem" if fits else "global"
@@ -225,8 +227,10 @@ _P = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    lib = cuda_build.load("blocked_chol_inverse")
+def kernel_lib(extra: tuple = ()):
+    """The kernel library built with ``extra`` nvcc flags, its entry points
+    typed for ctypes."""
+    lib = cuda_build.load("blocked_chol_inverse", extra)
     for dt in ("f32", "f64"):
         smem = getattr(lib, f"blocked_chol_inverse_smem_{dt}")
         smem.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
@@ -263,11 +267,31 @@ def blocked_chol_inverse(A: torch.Tensor, variant=None):
             f"blocked_chol_inverse takes float32 or float64, not {A.dtype}")
     if not A.is_contiguous():
         raise ValueError("blocked_chol_inverse needs a contiguous tensor")
+    out = _launch(A, variant)
+    blocked_chol_inverse.launches[variant] += 1
+    return out
+
+
+def global_work(A: torch.Tensor) -> torch.Tensor:
+    """The device buffer that the ``global`` kernel works in, apart from A
+    and the output: Np^2 elements a matrix (Np = 64 ceil(N / 64)), the
+    nb(nb+1)/2 lower 64 x 64 blocks of its factor and the nb(nb-1)/2
+    strictly lower blocks of W = L^{-1}, a block's elements contiguous."""
+    B, N, _ = A.shape
+    Np = -(-N // BS) * BS
+    return torch.empty((B, Np, Np), dtype=A.dtype, device=A.device)
+
+
+def _launch(A: torch.Tensor, variant: str, lib=None):
+    """Runs ``variant``'s kernel on a checked, contiguous CUDA batch;
+    counts nothing (``blocked_chol_inverse`` counts its own launches).
+    ``lib``: another build of the source (``kernel_lib(extra)``)."""
+    B, N, _ = A.shape
     inv = torch.empty_like(A)
     logdet = torch.empty(B, dtype=A.dtype, device=A.device)
     if B == 0:
         return inv, logdet
-    lib = _kernel_fns()
+    lib = lib or kernel_lib()
     dt = "f32" if A.dtype == torch.float32 else "f64"
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -275,19 +299,13 @@ def blocked_chol_inverse(A: torch.Tensor, variant=None):
             err = getattr(lib, f"blocked_chol_inverse_smem_{dt}")(
                 A.data_ptr(), inv.data_ptr(), logdet.data_ptr(), B, N, stream)
         else:
-            Np = -(-N // BS) * BS
-            # the kernel works in place in a padded copy; at N = Np that
-            # copy is the output itself
-            work = inv if Np == N else torch.empty(
-                (B, Np, Np), dtype=A.dtype, device=A.device)
             err = getattr(lib, f"blocked_chol_inverse_global_{dt}")(
-                A.data_ptr(), work.data_ptr(), inv.data_ptr(),
+                A.data_ptr(), global_work(A).data_ptr(), inv.data_ptr(),
                 logdet.data_ptr(), B, N, stream)
     if err != 0:
         raise RuntimeError(f"blocked_chol_inverse ({variant}) kernel launch "
                            "failed: "
                            + lib.blocked_chol_error_string(err).decode())
-    blocked_chol_inverse.launches[variant] += 1
     return inv, logdet
 
 

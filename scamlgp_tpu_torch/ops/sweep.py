@@ -21,9 +21,10 @@ or the wrapper raises; on a CPU tensor ``sweep_inverse_reference`` runs the
 variant's recurrence in plain torch, one vectorized step per serial trip.
 
 Each kernel keeps its matrices on chip for all their pivots, so device
-memory sees one read and one write of the batch: ``select`` in registers (a
-warp a matrix at N <= 32, a CTA at N <= 128, ``launch_geometry``), the
-other schemes one matrix per CTA in shared memory.  The bound on the card
+memory sees one read and one write of the batch: ``select`` and ``fused``
+in registers (a warp a matrix at N <= 32, a CTA at N <= 128,
+``launch_geometry``), ``pair`` and ``blocked`` one matrix per CTA in shared
+memory.  The bound on the card
 and what each design does about it are set out in the sources.  The
 reference's G-matrices-per-program batching and identity padding
 (``_choose_g``, ``_pad_batch``) existed for the TPU's VMEM and are not
@@ -73,19 +74,30 @@ def sweep_profitable(N: int) -> bool:
     return N <= _SWEEP_MAX_N
 
 
-def launch_geometry(N: int, dtype: torch.dtype = torch.float32) -> dict:
-    """How the ``select`` kernel is launched at N (1 <= N <= 128), the rule
-    of ``csrc/sweep_inverse.cu::geometry``: the register capacity (the
-    smallest of 8, 16, 32, 64, 128 that holds N), the threads of a CTA and
-    the matrices a CTA owns.  Up to N = 32 a matrix is CAP lanes of a warp,
-    one column a lane, 128 / CAP matrices a CTA of 128 threads; above, one
-    CTA of 16 x 16 threads owns one matrix, a ``tile`` x ``tile`` register
-    tile a thread.  ``ctas_per_sm`` is the CTA path's launch bound: two
-    CTAs an SM (at most 128 registers a thread) except for the float64
-    8 x 8 tile, whose 64 doubles need one CTA an SM and up to 255."""
+#: the schemes whose kernels keep a matrix in registers, launched by
+#: ``launch_geometry``'s rule
+REGISTER_SCHEMES = ("select", "fused")
+
+
+def launch_geometry(N: int, dtype: torch.dtype = torch.float32,
+                    variant: str = "select") -> dict:
+    """How the ``select`` or ``fused`` kernel is launched at N
+    (1 <= N <= 128), the rule of ``csrc/sweep_inverse.cu::geometry`` and
+    ``csrc/sweep_variants.cu::fused_geometry``, one rule for both: the
+    register capacity (the smallest of 8, 16, 32, 64, 128 that holds N),
+    the threads of a CTA and the matrices a CTA owns.  Up to N = 32 a
+    matrix is CAP lanes of a warp, one column a lane, 128 / CAP matrices a
+    CTA of 128 threads; above, one CTA of 16 x 16 threads owns one matrix,
+    a ``tile`` x ``tile`` register tile a thread.  ``ctas_per_sm`` is the
+    CTA path's launch bound: two CTAs an SM (at most 128 registers a
+    thread) except for the float64 8 x 8 tile, whose 64 doubles need one
+    CTA an SM and up to 255."""
+    if variant not in REGISTER_SCHEMES:
+        raise ValueError(f"launch_geometry covers {REGISTER_SCHEMES}, not "
+                         f"{variant!r}")
     if not 1 <= N <= _SWEEP_MAX_N:
-        raise ValueError(f"the select kernel takes 1 <= N <= {_SWEEP_MAX_N}, "
-                         f"got {N}")
+        raise ValueError(f"the {variant} kernel takes 1 <= N <= "
+                         f"{_SWEEP_MAX_N}, got {N}")
     capacity = next(c for c in (8, 16, 32, 64, 128) if N <= c)
     if capacity <= 32:
         return {"path": "warp", "capacity": capacity, "threads": 128,
@@ -259,15 +271,17 @@ def _kernel_fn(variant: str, dtype: torch.dtype):
     return fn, err
 
 
-def kernel_geometry(N: int) -> dict:
-    """The geometry that the built ``select`` kernel reports at N
-    (``sweep_inverse_geometry``), in ``launch_geometry``'s keys; the card
-    tests hold the two equal."""
-    lib = cuda_build.load("sweep_inverse")
+def kernel_geometry(N: int, variant: str = "select") -> dict:
+    """The geometry that the built ``select`` or ``fused`` kernel reports
+    at N (``sweep_inverse_geometry``, ``sweep_fused_geometry``), in
+    ``launch_geometry``'s keys; the card tests hold the two equal."""
+    source, prefix, _ = _KERNELS[variant]
+    lib = cuda_build.load(source)
+    fn = getattr(lib, f"{prefix}_geometry")
     out = (ctypes.c_int * 3)()
-    lib.sweep_inverse_geometry.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.sweep_inverse_geometry.restype = None
-    lib.sweep_inverse_geometry(N, ctypes.addressof(out))
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    fn(N, ctypes.addressof(out))
     return {"capacity": out[0], "threads": out[1],
             "matrices_per_cta": out[2]}
 
@@ -309,8 +323,9 @@ def sweep_inverse(A: torch.Tensor, variant: str = "select"):
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sweep_inverse takes float32 or float64, not {A.dtype}")
     if not sweep_profitable(N):
-        raise ValueError(f"sweep_inverse ({variant}) holds one matrix in one "
-                         f"CTA's shared memory: N <= {_SWEEP_MAX_N}, got {N}")
+        raise ValueError(f"sweep_inverse ({variant}) holds one matrix on one "
+                         "CTA, in its registers or shared memory: N <= "
+                         f"{_SWEEP_MAX_N}, got {N}")
     if not A.is_contiguous():
         raise ValueError("sweep_inverse needs a contiguous tensor")
     out = _launch(A, variant)

@@ -2,23 +2,29 @@
 
     python -m scamlgp_tpu_torch.profile_kernels ptxas
     python -m scamlgp_tpu_torch.profile_kernels phases [--batch B] [--n N]
+        [--variant smem|global] [--baseline]
     python -m scamlgp_tpu_torch.profile_kernels times
 
 - ``ptxas``: builds every kernel source with ``-Xptxas -v`` and prints each
   kernel's registers, shared memory and spill lines.
-- ``phases``: the ``smem`` blocked-Cholesky kernel's phase profile on one
-  launch at (B, N, N) float32 (default (1024, 256, 256), the Branin
-  N_m=256 meta-fit's batch): the source built with
+- ``phases``: a blocked-Cholesky kernel's phase profile on one launch at
+  (B, N, N) float32 (default ``smem`` at (1024, 256, 256), the Branin
+  N_m=256 meta-fit's batch; ``--variant global --batch 256 --n 512`` is
+  the Hartmann6D N_m=512 one): the source built with
   ``-DBLOCKED_CHOL_PROFILE`` stamps ``clock64()`` after a CTA barrier at
   the end of each phase (load and pad, diagonal blocks, panel TRSM,
   trailing update, triangular inverse, W^T W and the store).  Prints the
   mean cycles a CTA spends in each phase and their shares, with the
   kernel's time in the default build and in the profiling build (whose
-  barriers add to it).
-- ``times``: the ``select`` sweep kernel and both blocked-Cholesky
-  variants at the campaign's shapes, each beside its plain version, the
-  library Cholesky inverse and the roofline bound, and whether ``select``
-  in float32 equals its plain version bit for bit.
+  barriers add to it).  ``--baseline`` profiles the first ``global``
+  kernel (``csrc/baseline_kernels.cu``) instead.
+- ``times``: the ``select`` sweep kernel at the campaign's shapes beside
+  its plain version, the library Cholesky inverse and the roofline bound;
+  the ``fused`` sweep kernel and the ``global`` blocked-Cholesky kernel
+  beside their first versions (``BASELINES``), timed in turns (old, new,
+  new, old), with ``select``, ``smem`` and the library call at the same
+  shapes; and whether ``select`` and ``fused`` in float32 equal their
+  plain versions bit for bit.
 
 ``time_ms``, ``library_inverse`` and ``bound`` are also ``chip_smoke.py``'s.
 
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -44,6 +51,81 @@ PROFILE_FLAGS = ("-DBLOCKED_CHOL_PROFILE",)
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+_P = ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def baseline_lib(extra: tuple = ()):
+    """``csrc/baseline_kernels.cu``: the first versions of the ``global``
+    blocked-Cholesky kernel and the ``fused`` sweep kernel, float32, kept
+    as yardsticks."""
+    lib = cuda_build.load("baseline_kernels", extra)
+    lib.baseline_global_f32.argtypes = [_P] * 4 + [ctypes.c_longlong,
+                                                   ctypes.c_int, _P]
+    lib.baseline_fused_f32.argtypes = [_P] * 3 + [ctypes.c_longlong,
+                                                  ctypes.c_int, _P]
+    lib.baseline_global_f32.restype = ctypes.c_int
+    lib.baseline_fused_f32.restype = ctypes.c_int
+    lib.baseline_error_string.argtypes = [ctypes.c_int]
+    lib.baseline_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _baseline(A, name, lib=None):
+    lib = lib or baseline_lib()
+    if A.dtype != torch.float32:
+        raise TypeError("the baseline kernels take float32")
+    B, N, _ = A.shape
+    inv = torch.empty_like(A)
+    ld = torch.empty(B, dtype=A.dtype, device=A.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "global":
+        np_ = -(-N // blocked_chol.BS) * blocked_chol.BS
+        # the first kernel worked in place in a padded copy, the output
+        # itself at N = Np
+        work = inv if np_ == N else torch.empty((B, np_, np_), device=A.device)
+        err = lib.baseline_global_f32(A.data_ptr(), work.data_ptr(),
+                                      inv.data_ptr(), ld.data_ptr(), B, N,
+                                      stream)
+    else:
+        err = lib.baseline_fused_f32(A.data_ptr(), inv.data_ptr(),
+                                     ld.data_ptr(), B, N, stream)
+    if err:
+        raise RuntimeError(f"baseline {name} launch failed: "
+                           + lib.baseline_error_string(err).decode())
+    return inv, ld
+
+
+#: the kernels' names -> their first version, for timing beside them
+BASELINES = {
+    "blocked_chol_inverse_global": lambda A: _baseline(A, "global"),
+    "sweep_inverse_fused": lambda A: _baseline(A, "fused"),
+}
+
+
+def global_tile_transfers(nb: int, first: bool = False) -> int:
+    """The 64 x 64 tiles that the ``global`` kernel reads from and writes to
+    device memory for one matrix of nb blocks (``first``: its first
+    version, ``baseline_kernels.cu``), counted from their loops with every
+    panel on chip (nb <= 10 in float32).  A Cholesky step reads and writes
+    its diagonal block, its m = nb - 1 - b panel tiles and the m(m+1)/2
+    tiles it updates once each (the first version began with a padded copy
+    of the lower blocks and read a panel tile again for every tile it
+    updated); W reads two tiles a product and L(i, i), and writes its
+    block; W^T W reads one or two tiles a product and writes the output's
+    blocks.  A count, not a measurement: ``ncu`` does not run on the card's
+    machine."""
+    if first:
+        chol = nb * (nb + 1) + sum(2 + 2 * m + 3 * m * (m + 1) // 2
+                                   for m in range(nb))
+    else:
+        chol = sum(2 * (1 + m + m * (m + 1) // 2) for m in range(nb))
+    trinv = sum(2 * (i - j) + 2 for i in range(nb) for j in range(i))
+    wtw = sum((nb - i + 1) * (1 if i == j else 2)
+              for i in range(nb) for j in range(i + 1))
+    return chol + trinv + wtw
 
 
 def _emit(**kw):
@@ -111,48 +193,64 @@ def cmd_ptxas():
         _emit(probe="ptxas", source=name, lines=lines)
 
 
-def cmd_phases(batch: int, n: int):
-    lib = cuda_build.load("blocked_chol_inverse", PROFILE_FLAGS)
-    fn = lib.blocked_chol_inverse_smem_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.blocked_chol_profile_read.argtypes = [ctypes.c_void_p]
-    lib.blocked_chol_profile_read.restype = ctypes.c_int
-    lib.blocked_chol_profile_reset.argtypes = []
-    lib.blocked_chol_profile_reset.restype = ctypes.c_int
+def cmd_phases(batch: int, n: int, variant: str, baseline: bool = False):
+    """``baseline``: the first ``global`` kernel (``baseline_kernels.cu``)
+    in place of the current one."""
+    if baseline:
+        lib = baseline_lib(PROFILE_FLAGS)
+        read, reset = lib.baseline_profile_read, lib.baseline_profile_reset
+        name = "baseline_global"
+    else:
+        lib = blocked_chol.kernel_lib(PROFILE_FLAGS)
+        read, reset = lib.blocked_chol_profile_read, \
+            lib.blocked_chol_profile_reset
+        name = f"blocked_chol_inverse_{variant}"
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    reset.argtypes = []
+    reset.restype = ctypes.c_int
     A = spd(batch, n)
-    inv = torch.empty_like(A)
-    ld = torch.empty(batch, device="cuda")
 
     def launch():
-        err = fn(A.data_ptr(), inv.data_ptr(), ld.data_ptr(), batch, n,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"profiling launch failed: {err}")
+        if baseline:
+            return _baseline(A, "global", lib)
+        return blocked_chol._launch(A, variant, lib)
+
+    def default():
+        if baseline:
+            return _baseline(A, "global")
+        return blocked_chol.blocked_chol_inverse(A, variant)
 
     launch()
     torch.cuda.synchronize()
-    if lib.blocked_chol_profile_reset():
-        raise RuntimeError("blocked_chol_profile_reset failed")
-    launch()
+    if reset():
+        raise RuntimeError("phase profile reset failed")
+    inv, ld = launch()
     torch.cuda.synchronize()
     totals = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    if lib.blocked_chol_profile_read(ctypes.addressof(totals)):
-        raise RuntimeError("blocked_chol_profile_read failed")
+    if read(ctypes.addressof(totals)):
+        raise RuntimeError("phase profile read failed")
     ctas = totals[len(PHASES)]
     cycles = {p: totals[i] / ctas for i, p in enumerate(PHASES)}
     whole = sum(cycles.values())
+    nb = -(-n // blocked_chol.BS)
+    counted = {}
+    if (baseline or variant == "global") and nb <= 10:
+        counted["device_bytes_counted"] = (
+            batch * global_tile_transfers(nb, baseline)
+            * blocked_chol.BS ** 2 * A.element_size())
     ms_profiled = time_ms(launch, 10)
-    ms = time_ms(lambda: blocked_chol.blocked_chol_inverse(A, "smem"), 10)
-    ref_inv, ref_ld = blocked_chol.blocked_chol_inverse(A, "smem")
+    ms = time_ms(default, 10)
+    ref_inv, ref_ld = default()
     torch.cuda.synchronize()
-    _emit(probe="phases", kernel="blocked_chol_inverse_smem", batch=batch,
-          n=n, dtype="float32", ctas=ctas, cycles_per_cta=cycles,
+    _emit(probe="phases", kernel=name,
+          batch=batch, n=n, dtype="float32", ctas=ctas,
+          cycles_per_cta=cycles,
           share={p: c / whole for p, c in cycles.items()},
           cycles_per_cta_total=whole, ms=ms, ms_profiling_build=ms_profiled,
           profiling_build_equal=bool(torch.equal(inv, ref_inv)
-                                     and torch.equal(ld, ref_ld)))
+                                     and torch.equal(ld, ref_ld)),
+          **counted)
 
 
 def cmd_times():
@@ -170,20 +268,46 @@ def cmd_times():
             plain_ms=time_ms(lambda: sweep.sweep_inverse_reference(A), 2),
             library_ms=time_ms(lambda: library_inverse(A), 10),
             bound_ms=bound(B, N, A.dtype)[0]))
-    A = spd(1024, 256)
-    ref_inv, ref_ld = blocked_chol.blocked_chol_inverse_reference(A)
-    for variant in blocked_chol.VARIANTS:
-        inv, ld = blocked_chol.blocked_chol_inverse(A, variant)
+    # the redesigned kernels beside their first versions, in turns (old,
+    # new, new, old), with select and the library call at the same shapes
+    for B, N in ((1024, 128), (4096, 128), (1024, 32)):
+        A = spd(B, N)
+        inv_k, ld_k = sweep.sweep_inverse(A, "fused")
+        inv_p, ld_p = sweep.sweep_inverse_reference(A, "fused")
         torch.cuda.synchronize()
+        new = lambda: sweep.sweep_inverse(A, "fused")  # noqa: E731
+        old = lambda: BASELINES["sweep_inverse_fused"](A)  # noqa: E731
+        t = [time_ms(f, 20) for f in (old, new, new, old)]
         rows.append(dict(
-            kernel=f"blocked_chol_inverse_{variant}", batch=1024, n=256,
+            kernel="sweep_inverse_fused", batch=B, n=N,
+            bitwise_equal_plain=bool(torch.equal(inv_k, inv_p)
+                                     and torch.equal(ld_k, ld_p)),
+            ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2, turns_ms=t,
+            select_ms=time_ms(lambda: sweep.sweep_inverse(A, "select"), 20),
+            library_ms=time_ms(lambda: library_inverse(A), 10),
+            bound_ms=bound(B, N, A.dtype)[0]))
+    for B, N in ((256, 512), (1024, 256)):
+        A = spd(B, N)
+        ref_inv, ref_ld = blocked_chol.blocked_chol_inverse_reference(A)
+        inv, ld = blocked_chol.blocked_chol_inverse(A, "global")
+        torch.cuda.synchronize()
+        new = lambda: blocked_chol.blocked_chol_inverse(A, "global")  # noqa
+        old = lambda: BASELINES["blocked_chol_inverse_global"](A)  # noqa
+        t = [time_ms(f, 10) for f in (old, new, new, old)]
+        row = dict(
+            kernel="blocked_chol_inverse_global", batch=B, n=N,
             max_abs_err=(inv - ref_inv).abs().max().item(),
             max_abs_inv=ref_inv.abs().max().item(),
             logdet_max_abs_err=(ld - ref_ld).abs().max().item(),
-            ms=time_ms(lambda: blocked_chol.blocked_chol_inverse(A, variant),
-                       10),
+            ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2, turns_ms=t,
             library_ms=time_ms(lambda: library_inverse(A), 10),
-            bound_ms=bound(1024, 256, A.dtype)[0]))
+            bound_ms=bound(B, N, A.dtype)[0])
+        if N == 256:
+            row["smem_ms"] = time_ms(
+                lambda: blocked_chol.blocked_chol_inverse(A, "smem"), 10)
+        rows.append(row)
+        del A, ref_inv, inv
+        torch.cuda.empty_cache()
     for row in rows:
         _emit(probe="times", dtype="float32", **row)
 
@@ -193,6 +317,10 @@ def main(argv=None):
     ap.add_argument("probe", choices=("ptxas", "phases", "times"))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--variant", choices=blocked_chol.VARIANTS,
+                    default="smem")
+    ap.add_argument("--baseline", action="store_true",
+                    help="phases of the first global kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
@@ -203,7 +331,7 @@ def main(argv=None):
     if args.probe == "ptxas":
         cmd_ptxas()
     elif args.probe == "phases":
-        cmd_phases(args.batch, args.n)
+        cmd_phases(args.batch, args.n, args.variant, args.baseline)
     else:
         cmd_times()
     return 0

@@ -394,3 +394,16 @@ def test_tiny_campaign_blocked_route_matches_chol(counted):
     assert counted and set(counted) == {(S * M * 2, n, n)}
     assert all(c == [0, 0, 0] for c in out[True].launches.values())
     close(out[True].X, out[False].X.numpy(), rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("nb,now,first", [(1, 4, 6), (2, 21, 28)])
+def test_global_tile_transfers_counted_by_hand(nb, now, first):
+    """The ``global`` kernel's device tile traffic at sizes counted by hand:
+    at nb = 2 the Cholesky reads and writes L00, the panel L10 and L11 at
+    step 0 and L11 at step 1 (8), W10 takes L10, L00 and L11 in and W10
+    out (4), W^T W reads 2 + 2 + 1 tiles and writes 1 + 2 + 1 (9); the
+    first version added a padded copy of the three lower blocks (6) and a
+    second read of L10 at step 0 (1)."""
+    from scamlgp_tpu_torch.profile_kernels import global_tile_transfers
+    assert global_tile_transfers(nb) == now
+    assert global_tile_transfers(nb, first=True) == first

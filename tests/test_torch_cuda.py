@@ -97,6 +97,68 @@ def test_select_kernel_geometry_is_the_wrappers(cuda):
         assert got == {k: want[k] for k in got}, n
 
 
+FUSED_NS = [1, 2, 5, 9, 31, 32, 33, 41, 63, 64, 65, 127, 128]
+
+
+@pytest.mark.parametrize("n", FUSED_NS)
+def test_fused_kernel_equals_plain_bit_for_bit_f32(cuda, n):
+    """The fused kernel repeats ``_sweep_fused``'s operations element by
+    element, (A + cd u) + e_k w with the zero term kept (no FMA), so in
+    float32 it gives the same bits, zeros' signs included; N crosses every
+    register capacity and the warp and CTA paths, and the batch (37) is no
+    multiple of the matrices a CTA owns."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    before = sweep.sweep_inverse.launches["fused"]
+    inv_k, ld_k = sweep.sweep_inverse(A, "fused")
+    torch.cuda.synchronize()
+    assert sweep.sweep_inverse.launches["fused"] == before + 1
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, "fused")
+    assert torch.equal(inv_k, inv_p)
+    assert torch.equal(torch.signbit(inv_k), torch.signbit(inv_p))
+    assert torch.equal(ld_k, ld_p)
+
+
+@pytest.mark.parametrize("n", FUSED_NS)
+def test_fused_kernel_matches_plain_f64(cuda, n):
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        dtype=torch.float64, device=cuda)
+    inv_k, ld_k = sweep.sweep_inverse(A, "fused")
+    torch.cuda.synchronize()
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, "fused")
+    assert (inv_k - inv_p).abs().max().item() <= 1e-11 * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= 1e-12
+
+
+def test_fused_kernel_geometry_is_the_wrappers(cuda):
+    for n in range(1, 129):
+        want = sweep.launch_geometry(n, variant="fused")
+        got = sweep.kernel_geometry(n, "fused")
+        assert got == {k: want[k] for k in got}, n
+
+
+@pytest.mark.parametrize("name,n", [
+    ("sweep_inverse_fused", 40), ("sweep_inverse_fused", 128),
+    ("blocked_chol_inverse_global", 200), ("blocked_chol_inverse_global", 512)])
+def test_baseline_kernels_match_plain(cuda, name, n):
+    """The first versions, kept to be timed beside the redesigned kernels,
+    still compute the function (float32, the sweep's tolerances)."""
+    from scamlgp_tpu_torch.profile_kernels import BASELINES
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 8, n),
+                        device=cuda)
+    inv_k, ld_k = BASELINES[name](A)
+    torch.cuda.synchronize()
+    inv_p, ld_p = (sweep.sweep_inverse_reference(A, "fused")
+                   if name.startswith("sweep")
+                   else blocked_chol.blocked_chol_inverse_reference(A))
+    assert (inv_k - inv_p).abs().max().item() <= 1e-4 * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= 1e-5
+
+
 def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         sweep.sweep_inverse(torch.eye(130, device=cuda).expand(2, 130, 130)
@@ -201,11 +263,14 @@ def test_sweep_inverse_gradient_on_the_card(cuda, variant):
 
 @pytest.mark.parametrize("variant", blocked_chol.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [64, 88, 192, 256, 512, 1024])
+@pytest.mark.parametrize("n", [64, 88, 192, 256, 320, 448, 512, 704, 1000,
+                               1024])
 def test_blocked_kernel_matches_plain(cuda, n, dtype, variant):
     """Each variant at every fixture shape it can take (``smem`` needs the
     lower blocks in one CTA's shared memory), same tolerances as the
-    sweep."""
+    sweep: N = 320, 448, 704 and 1000 cross ``global``'s routing window
+    (float32 from 320, float64 up to 704) and its panel chunks, 1000 is no
+    multiple of 64."""
     itemsize = torch.finfo(dtype).bits // 8
     if variant == "smem" and (blocked_chol.smem_bytes(n, itemsize)
                               > blocked_chol.SMEM_LIMIT):

@@ -161,3 +161,17 @@ def test_select_kernel_launch_geometry(dtype):
     for bad in (0, tsw._SWEEP_MAX_N + 1):
         with pytest.raises(ValueError):
             tsw.launch_geometry(bad, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_kernel_launch_geometry_is_selects(dtype):
+    """The fused kernel keeps its matrix in registers as select does, on
+    select's geometry at every N <= 128 (the card test holds the built
+    kernel to it); the schemes in shared memory have no such geometry."""
+    for n in range(1, tsw._SWEEP_MAX_N + 1):
+        assert tsw.launch_geometry(n, dtype, "fused") == \
+            tsw.launch_geometry(n, dtype, "select")
+    assert tsw.REGISTER_SCHEMES == ("select", "fused")
+    for variant in ("pair", "blocked"):
+        with pytest.raises(ValueError, match="covers"):
+            tsw.launch_geometry(64, dtype, variant)
