@@ -14,9 +14,13 @@ Phases, each printing one JSON line with its own seconds:
    one PyTorch library call computing the same function, and the roofline
    bound.  Kernels: the sweep inverse in its four step schemes (``select``,
    ``fused``, ``pair``, ``blocked``), and the blocked-Cholesky inverse in
-   its two variants, ``smem`` and ``global``.  ``fused`` and ``global``
-   are also timed against their first versions (``old_ms``,
-   ``csrc/baseline_kernels.cu``), in turns;
+   its two variants, ``smem`` and ``global``.  ``fused``, ``pair``,
+   ``blocked`` and ``global`` are also timed against their first versions
+   (``old_ms``, ``csrc/baseline_kernels.cu``), in turns (old, new, new,
+   old), ``pair`` and ``blocked`` at all three of their timed shapes
+   ((1024, 32, 32), (1024, 128, 128) and (4096, 128, 128)).  ``pair`` in
+   float32 must equal its plain version bit for bit on every float32
+   input of the phase (``BITWISE``);
 3b. gram: the RBF Gram kernel (``ops/gram.py``) against its plain version
    at (n, m, d) = (300, 200, 3), (2048, 2048, 6) and (4096, 1024, 2) in
    float32 and float64 (atol 2e-5), its gradients against autograd of
@@ -50,7 +54,10 @@ Phases, each printing one JSON line with its own seconds:
    systems is held against float64 for each kernel of the slice's route
    and its plain version (every sweep scheme at N <= 128, the blocked
    variant on the ``route_blocked`` slices): a kernel farther from float64
-   than twice its plain version fails;
+   than twice its plain version fails.  So the ``pair`` and ``blocked``
+   kernels, though no slice's route takes them, are held to twice their
+   plain versions' distance from float64 on the p32 and hm6 p128 slices'
+   own float32 systems (``rounding``);
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -158,6 +165,9 @@ DRIVER_SEEDS, DRIVER_EVALS = (0, 1), 10
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
 TOL_LOGDET = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: kernels that repeat their plain version's operations element by element,
+#: held to its bits in float32
+BITWISE = ("sweep_inverse_pair",)
 
 
 def emit(phase, seconds, **kw):
@@ -250,9 +260,13 @@ def check_kernel(name, A, what):
     err = (inv_k - inv_p).abs().max().item()
     scale = inv_p.abs().max().item()
     ld_err = ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item()
+    bitwise = bool(torch.equal(inv_k, inv_p) and torch.equal(ld_k, ld_p))
     emit("kernel_check", None, kernel=name, shapes=what, n=n,
          batch=A.shape[0], dtype=str(dtype), max_abs_err=err,
-         max_abs_inv=scale, logdet_rel_err=ld_err)
+         max_abs_inv=scale, logdet_rel_err=ld_err, bitwise_equal=bitwise)
+    if name in BITWISE and dtype == torch.float32:
+        check(bitwise, f"{name} {what} n={n}: not bit for bit with its "
+              "plain version in float32")
     check(err <= TOL_INV[dtype] * scale,
           f"{name} inverse {what} n={n} {dtype}: {err} > "
           f"{TOL_INV[dtype]} * {scale}")
@@ -745,6 +759,8 @@ def main():
             "bound_ms": head[name]["bound_ms"],
             "bound_by": head[name]["bound_by"],
             "library_ms": head[name]["library_ms"],
+            # the first version's time, timed in turns with this one
+            "old_ms": head[name].get("old_ms"),
             # the kernel's times at its other timed shapes (select at the
             # hm6 p128 meta-fit's and the bench's N = 128, global at the
             # smem variant's shape)

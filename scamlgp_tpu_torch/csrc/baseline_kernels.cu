@@ -10,7 +10,18 @@
 //   baseline_fused_f32: sweep_variants.cu's first `fused` scheme (one
 //     matrix a CTA in shared memory, a staging pass and two barriers a
 //     pivot), its multiplies and adds written as __fmul_rn / __fadd_rn so
-//     that, like its source's -fmad=false build, none is contracted.
+//     that, like its source's -fmad=false build, none is contracted;
+//   baseline_pair_f32, baseline_blocked_f32: sweep_variants.cu's first
+//     `pair` and `blocked` schemes (one matrix a CTA in shared memory; pair:
+//     warp 0 rebuilds q's borders while the others wait, then a flat pass
+//     with a five-way branch an element, two barriers a pair; blocked: an R
+//     copy a panel, two barriers and a flat pass over the 32 x N slab a
+//     pivot, a rank-32 update by 4 x 4 tiles from shared memory), written
+//     with __fmul_rn / __fadd_rn / __fsub_rn as the fused one is.  Built
+//     with -DSWEEP_PROFILE they stamp clock64() per warp at the end of each
+//     phase, as sweep_variants.cu's current kernels do (pair: load and
+//     store, border rebuild, update pass, barrier waits; blocked: load and
+//     store, R copy, panel pivots, rank-32 update).
 //
 // Built by scamlgp_tpu_torch/ops/cuda_build.py like the other sources;
 // scamlgp_tpu_torch/profile_kernels.py and chip_smoke.py time them.
@@ -404,6 +415,306 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
 }
 
+// ---------------------------------------------------------------------------
+// pair and blocked: phase stamps per warp under -DSWEEP_PROFILE
+// ---------------------------------------------------------------------------
+
+enum SweepPhase { SP_LOAD_STORE, SP_A, SP_B, SP_C, SP_COUNT };
+#ifdef SWEEP_PROFILE
+// [0: pair, 1: blocked][phase], the last slot the warps counted
+__device__ unsigned long long g_baseline_sweep_cycles[2][SP_COUNT + 1];
+#define SPROF_DECL                  \
+  long long sp_last = clock64();    \
+  long long sp_acc[SP_COUNT] = {};
+#define SPROF_MARK(ph)                 \
+  do {                                 \
+    const long long now_ = clock64();  \
+    sp_acc[ph] += now_ - sp_last;      \
+    sp_last = now_;                    \
+  } while (0)
+#define SPROF_FLUSH(s)                                                    \
+  do {                                                                    \
+    if ((threadIdx.x & 31) == 0) {                                        \
+      for (int p_ = 0; p_ < SP_COUNT; ++p_)                               \
+        atomicAdd(&g_baseline_sweep_cycles[s][p_],                        \
+                  static_cast<unsigned long long>(sp_acc[p_]));           \
+      atomicAdd(&g_baseline_sweep_cycles[s][SP_COUNT], 1ull);             \
+    }                                                                     \
+  } while (0)
+// A barrier that ends phase ph, its wait counted in SP_C: the stamp before
+// it feeds the barrier's predicate, so that it is read before the wait (a
+// plain stamp there was read after the release)
+#define SPROF_SYNC(ph)                         \
+  do {                                         \
+    const long long at_ = clock64();           \
+    sp_acc[ph] += at_ - sp_last;               \
+    __syncthreads_or(at_ == 0);                \
+    sp_last = clock64();                       \
+    sp_acc[SP_C] += sp_last - at_;             \
+  } while (0)
+#else
+#define SPROF_DECL
+#define SPROF_MARK(ph) \
+  do {                 \
+  } while (0)
+#define SPROF_SYNC(ph) __syncthreads()
+#define SPROF_FLUSH(s) \
+  do {                 \
+  } while (0)
+#endif
+
+// ---------------------------------------------------------------------------
+// pair
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    baseline_pair_kernel(const float* __restrict__ a, float* __restrict__ inv,
+                         float* __restrict__ logdet, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* A = reinterpret_cast<float*>(smem_raw);
+  float* cdp = A + n * n;     // col_p / d_p
+  float* rowp = cdp + n;      // row p before the pair
+  float* cdq = rowp + n;      // q's column after p, / d_q'
+  float* rowq1 = cdq + n;     // row q after p
+  float* colpf = rowq1 + n;   // column p after the pair
+  float* rowpf = colpf + n;   // row p after the pair
+  float* rowqf = rowpf + n;   // row q after the pair
+  const int nn = n * n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+  const int j = threadIdx.x % n;
+  const int i0 = threadIdx.x / n;
+  const int rstep = blockDim.x / n;
+  SPROF_DECL
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    A[idx] = a[base + idx];
+  float ld = 0.0f;
+  SPROF_SYNC(SP_LOAD_STORE);
+
+  for (int p = 0; p < n; p += 2) {
+    const int q = p + 1;
+    if (threadIdx.x < 32) {
+      const float dp = A[p * n + p];
+      const float rpq = A[p * n + q];
+      const float inv_dp = 1.0f / dp;
+      const float cdpq = __fmul_rn(A[q * n + p], inv_dp);
+      const float dq1 = __fsub_rn(A[q * n + q], __fmul_rn(cdpq, rpq));
+      const float inv_dq = 1.0f / dq1;
+      const float cdqp = __fmul_rn(
+          __fadd_rn(__fsub_rn(A[p * n + q], __fmul_rn(__fmul_rn(dp, inv_dp),
+                                                      rpq)),
+                    __fmul_rn(rpq, inv_dp)),
+          inv_dq);
+      for (int i = threadIdx.x; i < n; i += 32) {
+        const float ep = (i == p) ? 1.0f : 0.0f;
+        const float eq = (i == q) ? 1.0f : 0.0f;
+        const float c_p = __fmul_rn(A[i * n + p], inv_dp);
+        const float colq1 =
+            __fadd_rn(__fsub_rn(A[i * n + q], __fmul_rn(c_p, rpq)),
+                      __fmul_rn(ep, __fmul_rn(rpq, inv_dp)));
+        const float c_q = __fmul_rn(colq1, inv_dq);
+        const float rp = A[p * n + i];
+        const float rq1 = __fadd_rn(__fsub_rn(A[q * n + i],
+                                              __fmul_rn(cdpq, rp)),
+                                    __fmul_rn(ep, cdpq));
+        const float rp_fix = __fsub_rn(__fmul_rn(rp, inv_dp),
+                                       __fmul_rn(ep, inv_dp + 1.0f));
+        cdp[i] = c_p;
+        rowp[i] = rp;
+        cdq[i] = c_q;
+        rowq1[i] = rq1;
+        colpf[i] = __fsub_rn(c_p, __fmul_rn(c_q, cdpq));
+        rowpf[i] = __fadd_rn(__fsub_rn(rp_fix, __fmul_rn(cdqp, rq1)),
+                             __fmul_rn(eq, cdqp));
+        rowqf[i] = __fsub_rn(__fmul_rn(rq1, inv_dq),
+                             __fmul_rn(eq, inv_dq + 1.0f));
+      }
+      if (threadIdx.x == 0) {
+        ld += logf(dp);
+        ld += logf(dq1);
+      }
+    }
+    SPROF_SYNC(SP_A);
+    if (i0 < rstep) {
+      const float rpj = rowp[j];
+      const float rq1j = rowq1[j];
+      for (int i = i0; i < n; i += rstep) {
+        float v;
+        if (i == p) {
+          v = rowpf[j];
+        } else if (i == q) {
+          v = rowqf[j];
+        } else if (j == p) {
+          v = colpf[i];
+        } else if (j == q) {
+          v = cdq[i];
+        } else {
+          v = __fsub_rn(__fsub_rn(A[i * n + j], __fmul_rn(cdp[i], rpj)),
+                        __fmul_rn(cdq[i], rq1j));
+        }
+        A[i * n + j] = v;
+      }
+    }
+    SPROF_SYNC(SP_B);
+  }
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    inv[base + idx] = -A[idx];
+  if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+  SPROF_MARK(SP_LOAD_STORE);
+  SPROF_FLUSH(0);
+}
+
+// ---------------------------------------------------------------------------
+// blocked
+// ---------------------------------------------------------------------------
+
+constexpr int kBlock = 32;             // panel width of the blocked scheme
+constexpr int kRbStride = kBlock + 1;  // padded row of the R scratch
+
+__global__ void __launch_bounds__(kThreads)
+    baseline_blocked_kernel(const float* __restrict__ a,
+                            float* __restrict__ inv,
+                            float* __restrict__ logdet, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* A = reinterpret_cast<float*>(smem_raw);
+  float* rb = A + n * n;               // (n, kRbStride): the panel's columns
+  float* col = rb + n * kRbStride;     // (kBlock): pivot column in the panel
+  float* row = col + kBlock;           // (n): pivot row
+  const int nn = n * n;
+  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
+  const int n4 = n / 4;
+  SPROF_DECL
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    A[idx] = a[base + idx];
+  float ld = 0.0f;
+  SPROF_MARK(SP_LOAD_STORE);
+  __syncthreads();
+  SPROF_MARK(SP_LOAD_STORE);
+
+  for (int b0 = 0; b0 < n; b0 += kBlock) {
+    float* P = A + b0 * n;  // the panel's rows
+    for (int idx = threadIdx.x; idx < n * kBlock; idx += blockDim.x) {
+      const int i = idx / kBlock;
+      const int t = idx - i * kBlock;
+      rb[i * kRbStride + t] = A[i * n + b0 + t];
+    }
+    SPROF_MARK(SP_A);
+
+    for (int jj = 0; jj < kBlock; ++jj) {
+      const int k = b0 + jj;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        row[i] = P[jj * n + i];
+        if (i < kBlock) col[i] = P[i * n + k];
+      }
+      __syncthreads();
+      const float d = row[k];
+      const float inv_d = 1.0f / d;
+      const float corner = -inv_d - 2.0f;
+      for (int idx = threadIdx.x; idx < kBlock * n; idx += blockDim.x) {
+        const int i = idx / n;
+        const int jc = idx - i * n;
+        const float cdi = __fmul_rn(col[i], inv_d);
+        const float es = (i == jj) ? 1.0f : 0.0f;
+        const float el = (jc == k) ? 1.0f : 0.0f;
+        const float r = row[jc];
+        P[idx] = __fadd_rn(
+            __fadd_rn(__fadd_rn(__fsub_rn(P[idx], __fmul_rn(cdi, r)),
+                                __fmul_rn(es, __fmul_rn(r, inv_d))),
+                      __fmul_rn(cdi, el)),
+            __fmul_rn(corner, __fmul_rn(es, el)));
+      }
+      if (threadIdx.x == 0) ld += logf(d);
+      __syncthreads();
+    }
+    SPROF_MARK(SP_B);
+
+    const int row_groups = n4 - kBlock / 4;
+    const int tiles = row_groups * n4;
+    for (int tile = threadIdx.x; tile < tiles; tile += blockDim.x) {
+      const int tr = tile / n4;
+      const int tc = tile - tr * n4;
+      const int rg = tr < b0 / 4 ? tr : tr + kBlock / 4;
+      const int r0 = rg * 4;
+      const int c0 = tc * 4;
+      float acc[4][4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
+      for (int t = 0; t < kBlock; ++t) {
+        float rv[4], wv[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) rv[x] = rb[(r0 + x) * kRbStride + t];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) wv[y] = P[t * n + c0 + y];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            acc[x][y] = __fadd_rn(acc[x][y], __fmul_rn(rv[x], wv[y]));
+      }
+      const bool in_panel = c0 >= b0 && c0 < b0 + kBlock;
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          float* out = A + (r0 + x) * n + c0 + y;
+          *out = __fsub_rn(in_panel ? 0.0f : *out, acc[x][y]);
+        }
+    }
+    __syncthreads();
+    SPROF_MARK(SP_C);
+  }
+
+  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x)
+    inv[base + idx] = -A[idx];
+  if (threadIdx.x == 0) logdet[blockIdx.x] = ld;
+  SPROF_MARK(SP_LOAD_STORE);
+  SPROF_FLUSH(1);
+}
+
+size_t baseline_pair_smem(int n) {
+  return (static_cast<size_t>(n) * n + 7 * n) * sizeof(float);
+}
+
+size_t baseline_blocked_smem(int n) {
+  return (static_cast<size_t>(n) * n + static_cast<size_t>(n) * kRbStride +
+          kBlock + n) *
+         sizeof(float);
+}
+
+// One matrix a CTA of at most 256 threads, as the first kernels launched.
+int baseline_sweep_launch(bool pair, const void* a, void* inv, void* logdet,
+                          long long batch, int n, void* stream) {
+  if (batch <= 0) return 0;
+  if (n < 1 || n > 128 || (pair && n % 2 != 0) ||
+      (!pair && n % kBlock != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* kernel = pair ? reinterpret_cast<void*>(baseline_pair_kernel)
+                      : reinterpret_cast<void*>(baseline_blocked_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(pair ? baseline_pair_smem(128)
+                            : baseline_blocked_smem(128)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nn = n * n;
+  const int threads = nn >= kThreads ? kThreads : ((nn + 31) / 32) * 32;
+  const dim3 grid(static_cast<unsigned int>(batch));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pa = static_cast<const float*>(a);
+  float* pinv = static_cast<float*>(inv);
+  float* pld = static_cast<float*>(logdet);
+  if (pair)
+    baseline_pair_kernel<<<grid, threads, baseline_pair_smem(n), st>>>(
+        pa, pinv, pld, n);
+  else
+    baseline_blocked_kernel<<<grid, threads, baseline_blocked_smem(n), st>>>(
+        pa, pinv, pld, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -443,6 +754,32 @@ int baseline_fused_f32(const void* a, void* inv, void* logdet,
       static_cast<float*>(logdet), n);
   return static_cast<int>(cudaGetLastError());
 }
+
+int baseline_pair_f32(const void* a, void* inv, void* logdet,
+                      long long batch, int n, void* stream) {
+  return baseline_sweep_launch(true, a, inv, logdet, batch, n, stream);
+}
+
+int baseline_blocked_f32(const void* a, void* inv, void* logdet,
+                         long long batch, int n, void* stream) {
+  return baseline_sweep_launch(false, a, inv, logdet, batch, n, stream);
+}
+
+#ifdef SWEEP_PROFILE
+// scheme 0 (pair) or 1 (blocked): SP_COUNT phase totals, then the warps
+int baseline_sweep_profile_read(int scheme, unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_baseline_sweep_cycles,
+      sizeof(unsigned long long) * (SP_COUNT + 1),
+      sizeof(unsigned long long) * (SP_COUNT + 1) * scheme));
+}
+
+int baseline_sweep_profile_reset() {
+  static const unsigned long long zeros[2][SP_COUNT + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_baseline_sweep_cycles, zeros, sizeof(zeros)));
+}
+#endif
 
 #ifdef BLOCKED_CHOL_PROFILE
 int baseline_profile_read(unsigned long long* out) {

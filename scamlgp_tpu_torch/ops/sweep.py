@@ -20,12 +20,12 @@ not allow takes ``"select"``, as the reference's dispatch falls through
 or the wrapper raises; on a CPU tensor ``sweep_inverse_reference`` runs the
 variant's recurrence in plain torch, one vectorized step per serial trip.
 
-Each kernel keeps its matrices on chip for all their pivots, so device
-memory sees one read and one write of the batch: ``select`` and ``fused``
-in registers (a warp a matrix at N <= 32, a CTA at N <= 128,
-``launch_geometry``), ``pair`` and ``blocked`` one matrix per CTA in shared
-memory.  The bound on the card
-and what each design does about it are set out in the sources.  The
+Each kernel keeps its matrices in registers for all their pivots, so
+device memory sees one read and one write of the batch: a warp a matrix at
+N <= 32, a CTA of 16 x 16 threads with a register tile each at N <= 128,
+one rule for the four schemes (``launch_geometry``); ``blocked`` also
+stages each panel's rank-32 operands in shared memory.  The bound on the
+card and what each design does about it are set out in the sources.  The
 reference's G-matrices-per-program batching and identity padding
 (``_choose_g``, ``_pad_batch``) existed for the TPU's VMEM and are not
 carried over.
@@ -67,45 +67,59 @@ _KERNELS = {
 
 
 def sweep_profitable(N: int) -> bool:
-    """Whether the sweep route serves this system size.  At N <= 128 one
-    matrix fits one CTA's shared memory in f32 and f64 alike (at most
-    163 KiB of Hopper's 227 KiB, the blocked scheme in f64), so N alone
-    decides."""
+    """Whether the sweep route serves this system size.  Every scheme's
+    kernel holds one matrix in the registers of one CTA up to N = 128, in
+    f32 and f64 alike, so N alone decides."""
     return N <= _SWEEP_MAX_N
-
-
-#: the schemes whose kernels keep a matrix in registers, launched by
-#: ``launch_geometry``'s rule
-REGISTER_SCHEMES = ("select", "fused")
 
 
 def launch_geometry(N: int, dtype: torch.dtype = torch.float32,
                     variant: str = "select") -> dict:
-    """How the ``select`` or ``fused`` kernel is launched at N
-    (1 <= N <= 128), the rule of ``csrc/sweep_inverse.cu::geometry`` and
-    ``csrc/sweep_variants.cu::fused_geometry``, one rule for both: the
-    register capacity (the smallest of 8, 16, 32, 64, 128 that holds N),
-    the threads of a CTA and the matrices a CTA owns.  Up to N = 32 a
-    matrix is CAP lanes of a warp, one column a lane, 128 / CAP matrices a
-    CTA of 128 threads; above, one CTA of 16 x 16 threads owns one matrix,
-    a ``tile`` x ``tile`` register tile a thread.  ``ctas_per_sm`` is the
-    CTA path's launch bound: two CTAs an SM (at most 128 registers a
-    thread) except for the float64 8 x 8 tile, whose 64 doubles need one
-    CTA an SM and up to 255."""
-    if variant not in REGISTER_SCHEMES:
-        raise ValueError(f"launch_geometry covers {REGISTER_SCHEMES}, not "
-                         f"{variant!r}")
+    """How ``variant``'s kernel is launched at an N it takes
+    (``resolve_variant``), the rule of ``csrc/sweep_inverse.cu::geometry``
+    and ``csrc/sweep_variants.cu::geometry``, one rule for the four
+    schemes: the register capacity (the smallest of 8, 16, 32, 64, 128 that
+    holds N), the threads of a CTA and the matrices a CTA owns.  Up to
+    N = 32 a matrix is CAP lanes of a warp, one column a lane, 128 / CAP
+    matrices a CTA of 128 threads; above, one CTA of 16 x 16 threads owns
+    one matrix, a ``tile`` x ``tile`` register tile a thread (rows
+    ty + 16 r, columns tx + 16 c).  ``ctas_per_sm`` is the CTA path's
+    launch bound: two CTAs an SM (at most 128 registers a thread) except
+    for the float64 8 x 8 tile, whose 64 doubles need one CTA an SM and up
+    to 255.
+
+    ``blocked`` also gives ``panel_rows_per_thread``, the rows of each
+    32-row panel that one thread (a lane on the warp path) holds: on the
+    CTA path panel b is register rows 2 b and 2 b + 1 of every thread, so a
+    panel's pivots keep all 256 threads busy; and, on the CTA path,
+    ``shared_bytes``, the dynamic shared memory that stages the panel's
+    columns of every row (32 x (CAP + 1), padded) and the swept panel
+    (32 x CAP) for the rank-32 update."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown sweep variant {variant!r} "
+                         f"({' | '.join(VARIANTS)})")
     if not 1 <= N <= _SWEEP_MAX_N:
         raise ValueError(f"the {variant} kernel takes 1 <= N <= "
                          f"{_SWEEP_MAX_N}, got {N}")
+    if resolve_variant(N, variant) != variant:
+        raise ValueError(f"the {variant} kernel does not take N = {N} "
+                         "(pair: N even; blocked: N % 32 == 0)")
     capacity = next(c for c in (8, 16, 32, 64, 128) if N <= c)
     if capacity <= 32:
-        return {"path": "warp", "capacity": capacity, "threads": 128,
-                "matrices_per_cta": 128 // capacity}
+        geo = {"path": "warp", "capacity": capacity, "threads": 128,
+               "matrices_per_cta": 128 // capacity}
+        if variant == "blocked":
+            geo["panel_rows_per_thread"] = BLOCK
+        return geo
     tile = capacity // 16
-    return {"path": "cta", "capacity": capacity, "threads": 256,
-            "matrices_per_cta": 1, "tile": tile,
-            "ctas_per_sm": 1 if (dtype == torch.float64 and tile == 8) else 2}
+    geo = {"path": "cta", "capacity": capacity, "threads": 256,
+           "matrices_per_cta": 1, "tile": tile,
+           "ctas_per_sm": 1 if (dtype == torch.float64 and tile == 8) else 2}
+    if variant == "blocked":
+        geo["panel_rows_per_thread"] = BLOCK // 16
+        geo["shared_bytes"] = (BLOCK * (capacity + 1) + BLOCK * capacity) * (
+            torch.finfo(dtype).bits // 8)
+    return geo
 
 
 def kernel_name(variant: str) -> str:
@@ -257,11 +271,12 @@ _C_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(variant: str, dtype: torch.dtype):
-    """The C entry point of ``variant``'s kernel in ``dtype``, and the
-    library's error-string function."""
+def _kernel_fn(variant: str, dtype: torch.dtype, extra: tuple = ()):
+    """The C entry point of ``variant``'s kernel in ``dtype`` (the source
+    built with ``extra`` flags), and the library's error-string
+    function."""
     source, prefix, err_name = _KERNELS[variant]
-    lib = cuda_build.load(source)
+    lib = cuda_build.load(source, extra)
     fn = getattr(lib, f"{prefix}_{'f32' if dtype == torch.float32 else 'f64'}")
     fn.argtypes = _C_ARGS
     fn.restype = ctypes.c_int
@@ -272,9 +287,9 @@ def _kernel_fn(variant: str, dtype: torch.dtype):
 
 
 def kernel_geometry(N: int, variant: str = "select") -> dict:
-    """The geometry that the built ``select`` or ``fused`` kernel reports
-    at N (``sweep_inverse_geometry``, ``sweep_fused_geometry``), in
-    ``launch_geometry``'s keys; the card tests hold the two equal."""
+    """The geometry that ``variant``'s built kernel reports at N
+    (``sweep_inverse_geometry``, ``sweep_{fused,pair,blocked}_geometry``),
+    in ``launch_geometry``'s keys; the card tests hold the two equal."""
     source, prefix, _ = _KERNELS[variant]
     lib = cuda_build.load(source)
     fn = getattr(lib, f"{prefix}_geometry")
@@ -286,15 +301,17 @@ def kernel_geometry(N: int, variant: str = "select") -> dict:
             "matrices_per_cta": out[2]}
 
 
-def _launch(A: torch.Tensor, variant: str):
+def _launch(A: torch.Tensor, variant: str, extra: tuple = ()):
     """Runs ``variant``'s kernel on a checked, contiguous CUDA batch;
-    counts nothing (``sweep_inverse`` counts its own launches)."""
+    counts nothing (``sweep_inverse`` counts its own launches).
+    ``extra``: the nvcc flags of another build of the source (a profiling
+    build's ``-D`` macro)."""
     B = A.shape[0]
     inv = torch.empty_like(A)
     logdet = torch.empty(B, dtype=A.dtype, device=A.device)
     if B == 0:
         return inv, logdet
-    fn, err_string = _kernel_fn(variant, A.dtype)
+    fn, err_string = _kernel_fn(variant, A.dtype, extra)
     with torch.cuda.device(A.device):
         err = fn(A.data_ptr(), inv.data_ptr(), logdet.data_ptr(), B,
                  A.shape[-1], torch.cuda.current_stream().cuda_stream)
@@ -323,9 +340,9 @@ def sweep_inverse(A: torch.Tensor, variant: str = "select"):
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sweep_inverse takes float32 or float64, not {A.dtype}")
     if not sweep_profitable(N):
-        raise ValueError(f"sweep_inverse ({variant}) holds one matrix on one "
-                         "CTA, in its registers or shared memory: N <= "
-                         f"{_SWEEP_MAX_N}, got {N}")
+        raise ValueError(f"sweep_inverse ({variant}) holds one matrix in the "
+                         "registers of one CTA (a panel's operands in its "
+                         f"shared memory): N <= {_SWEEP_MAX_N}, got {N}")
     if not A.is_contiguous():
         raise ValueError("sweep_inverse needs a contiguous tensor")
     out = _launch(A, variant)

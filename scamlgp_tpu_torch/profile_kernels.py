@@ -2,7 +2,7 @@
 
     python -m scamlgp_tpu_torch.profile_kernels ptxas
     python -m scamlgp_tpu_torch.profile_kernels phases [--batch B] [--n N]
-        [--variant smem|global] [--baseline]
+        [--variant smem|global|pair|blocked] [--baseline]
     python -m scamlgp_tpu_torch.profile_kernels times
 
 - ``ptxas``: builds every kernel source with ``-Xptxas -v`` and prints each
@@ -17,14 +17,23 @@
   mean cycles a CTA spends in each phase and their shares, with the
   kernel's time in the default build and in the profiling build (whose
   barriers add to it).  ``--baseline`` profiles the first ``global``
-  kernel (``csrc/baseline_kernels.cu``) instead.
+  kernel (``csrc/baseline_kernels.cu``) instead.  ``--variant pair`` or
+  ``blocked`` (default shape (1024, 128, 128), the Hartmann6D N_m=128
+  meta-fit's): the sweep scheme's CTA path built with ``-DSWEEP_PROFILE``,
+  where every warp stamps ``clock64()`` at the end of each phase, without
+  added barriers: the mean cycles a warp spends in each phase (``pair``:
+  load and store, border rebuild, update pass, barrier waits, stamped
+  through each barrier's predicate; ``blocked``: load and store, R and W
+  staging (the first version's R copy), panel pivots, rank-32 update, each
+  with the waits at its barriers), with ``--baseline`` for the first
+  version.
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
-  the ``fused`` sweep kernel and the ``global`` blocked-Cholesky kernel
-  beside their first versions (``BASELINES``), timed in turns (old, new,
-  new, old), with ``select``, ``smem`` and the library call at the same
-  shapes; and whether ``select`` and ``fused`` in float32 equal their
-  plain versions bit for bit.
+  the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
+  blocked-Cholesky kernel beside their first versions (``BASELINES``),
+  timed in turns (old, new, new, old), with ``select``, ``smem`` and the
+  library call at the same shapes; and whether ``select``, ``fused`` and
+  ``pair`` in float32 equal their plain versions bit for bit.
 
 ``time_ms``, ``library_inverse`` and ``bound`` are also ``chip_smoke.py``'s.
 
@@ -47,6 +56,10 @@ from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, sweep
 
 PHASES = ("load", "diag", "trsm", "syrk", "trinv", "wtw_store")
 PROFILE_FLAGS = ("-DBLOCKED_CHOL_PROFILE",)
+#: the sweep schemes' phases, in the order of their stamps' slots
+SWEEP_PHASES = {"pair": ("load_store", "rebuild", "update", "barrier"),
+                "blocked": ("load_store", "copy", "pivots", "update")}
+SWEEP_PROFILE_FLAGS = ("-DSWEEP_PROFILE",)
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -59,15 +72,16 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=None)
 def baseline_lib(extra: tuple = ()):
     """``csrc/baseline_kernels.cu``: the first versions of the ``global``
-    blocked-Cholesky kernel and the ``fused`` sweep kernel, float32, kept
-    as yardsticks."""
+    blocked-Cholesky kernel and the ``fused``, ``pair`` and ``blocked``
+    sweep kernels, float32, kept as yardsticks."""
     lib = cuda_build.load("baseline_kernels", extra)
     lib.baseline_global_f32.argtypes = [_P] * 4 + [ctypes.c_longlong,
                                                    ctypes.c_int, _P]
-    lib.baseline_fused_f32.argtypes = [_P] * 3 + [ctypes.c_longlong,
-                                                  ctypes.c_int, _P]
     lib.baseline_global_f32.restype = ctypes.c_int
-    lib.baseline_fused_f32.restype = ctypes.c_int
+    for name in ("fused", "pair", "blocked"):
+        fn = getattr(lib, f"baseline_{name}_f32")
+        fn.argtypes = [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, _P]
+        fn.restype = ctypes.c_int
     lib.baseline_error_string.argtypes = [ctypes.c_int]
     lib.baseline_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,8 +104,8 @@ def _baseline(A, name, lib=None):
                                       inv.data_ptr(), ld.data_ptr(), B, N,
                                       stream)
     else:
-        err = lib.baseline_fused_f32(A.data_ptr(), inv.data_ptr(),
-                                     ld.data_ptr(), B, N, stream)
+        err = getattr(lib, f"baseline_{name}_f32")(
+            A.data_ptr(), inv.data_ptr(), ld.data_ptr(), B, N, stream)
     if err:
         raise RuntimeError(f"baseline {name} launch failed: "
                            + lib.baseline_error_string(err).decode())
@@ -102,6 +116,8 @@ def _baseline(A, name, lib=None):
 BASELINES = {
     "blocked_chol_inverse_global": lambda A: _baseline(A, "global"),
     "sweep_inverse_fused": lambda A: _baseline(A, "fused"),
+    "sweep_inverse_pair": lambda A: _baseline(A, "pair"),
+    "sweep_inverse_blocked": lambda A: _baseline(A, "blocked"),
 }
 
 
@@ -194,32 +210,52 @@ def cmd_ptxas():
 
 
 def cmd_phases(batch: int, n: int, variant: str, baseline: bool = False):
-    """``baseline``: the first ``global`` kernel (``baseline_kernels.cu``)
-    in place of the current one."""
-    if baseline:
-        lib = baseline_lib(PROFILE_FLAGS)
-        read, reset = lib.baseline_profile_read, lib.baseline_profile_reset
-        name = "baseline_global"
-    else:
-        lib = blocked_chol.kernel_lib(PROFILE_FLAGS)
-        read, reset = lib.blocked_chol_profile_read, \
-            lib.blocked_chol_profile_reset
-        name = f"blocked_chol_inverse_{variant}"
-    read.argtypes = [ctypes.c_void_p]
-    read.restype = ctypes.c_int
-    reset.argtypes = []
-    reset.restype = ctypes.c_int
+    """One launch's phase profile at (batch, n, n) float32: ``variant``'s
+    kernel built with its profiling flags, or with ``baseline`` its first
+    version (``baseline_kernels.cu``; the first ``global`` for ``smem``
+    and ``global``).  The blocked-Cholesky kernels count cycles a CTA, the
+    sweep schemes cycles a warp (their current kernels stamp only their
+    CTA path, n > 32)."""
     A = spd(batch, n)
-
-    def launch():
+    if variant in SWEEP_PHASES:
+        phases, unit = SWEEP_PHASES[variant], "warp"
         if baseline:
-            return _baseline(A, "global", lib)
-        return blocked_chol._launch(A, variant, lib)
-
-    def default():
+            lib = baseline_lib(SWEEP_PROFILE_FLAGS)
+            read, reset = (lib.baseline_sweep_profile_read,
+                           lib.baseline_sweep_profile_reset)
+            name = f"baseline_{variant}"
+            launch = lambda: _baseline(A, variant, lib)  # noqa: E731
+            default = BASELINES[sweep.kernel_name(variant)]
+        else:
+            lib = cuda_build.load("sweep_variants", SWEEP_PROFILE_FLAGS)
+            read, reset = lib.sweep_profile_read, lib.sweep_profile_reset
+            name = sweep.kernel_name(variant)
+            launch = lambda: sweep._launch(  # noqa: E731
+                A, variant, SWEEP_PROFILE_FLAGS)
+            default = lambda A: sweep.sweep_inverse(A, variant)  # noqa
+        read.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        read = functools.partial(read, tuple(SWEEP_PHASES).index(variant))
+    else:
+        phases, unit = PHASES, "cta"
         if baseline:
-            return _baseline(A, "global")
-        return blocked_chol.blocked_chol_inverse(A, variant)
+            lib = baseline_lib(PROFILE_FLAGS)
+            read, reset = lib.baseline_profile_read, \
+                lib.baseline_profile_reset
+            name = "baseline_global"
+            launch = lambda: _baseline(A, "global", lib)  # noqa: E731
+            default = lambda A: _baseline(A, "global")  # noqa: E731
+        else:
+            lib = blocked_chol.kernel_lib(PROFILE_FLAGS)
+            read, reset = lib.blocked_chol_profile_read, \
+                lib.blocked_chol_profile_reset
+            name = f"blocked_chol_inverse_{variant}"
+            launch = lambda: blocked_chol._launch(A, variant, lib)  # noqa
+            default = lambda A: blocked_chol.blocked_chol_inverse(  # noqa
+                A, variant)
+        read.argtypes = [ctypes.c_void_p]
+    for fn in (read, reset):
+        getattr(fn, "func", fn).restype = ctypes.c_int
+    reset.argtypes = []
 
     launch()
     torch.cuda.synchronize()
@@ -227,27 +263,30 @@ def cmd_phases(batch: int, n: int, variant: str, baseline: bool = False):
         raise RuntimeError("phase profile reset failed")
     inv, ld = launch()
     torch.cuda.synchronize()
-    totals = (ctypes.c_ulonglong * (len(PHASES) + 1))()
+    totals = (ctypes.c_ulonglong * (len(phases) + 1))()
     if read(ctypes.addressof(totals)):
         raise RuntimeError("phase profile read failed")
-    ctas = totals[len(PHASES)]
-    cycles = {p: totals[i] / ctas for i, p in enumerate(PHASES)}
+    count = totals[len(phases)]
+    if count == 0:
+        raise RuntimeError(f"{name} stamped nothing at n={n}")
+    cycles = {p: totals[i] / count for i, p in enumerate(phases)}
     whole = sum(cycles.values())
     nb = -(-n // blocked_chol.BS)
     counted = {}
-    if (baseline or variant == "global") and nb <= 10:
+    if unit == "cta" and (baseline or variant == "global") and nb <= 10:
         counted["device_bytes_counted"] = (
             batch * global_tile_transfers(nb, baseline)
             * blocked_chol.BS ** 2 * A.element_size())
     ms_profiled = time_ms(launch, 10)
-    ms = time_ms(default, 10)
-    ref_inv, ref_ld = default()
+    ms = time_ms(lambda: default(A), 10)
+    ref_inv, ref_ld = default(A)
     torch.cuda.synchronize()
     _emit(probe="phases", kernel=name,
-          batch=batch, n=n, dtype="float32", ctas=ctas,
-          cycles_per_cta=cycles,
+          batch=batch, n=n, dtype="float32", **{f"{unit}s": count},
+          **{f"cycles_per_{unit}": cycles},
           share={p: c / whole for p, c in cycles.items()},
-          cycles_per_cta_total=whole, ms=ms, ms_profiling_build=ms_profiled,
+          **{f"cycles_per_{unit}_total": whole}, ms=ms,
+          ms_profiling_build=ms_profiled,
           profiling_build_equal=bool(torch.equal(inv, ref_inv)
                                      and torch.equal(ld, ref_ld)),
           **counted)
@@ -272,20 +311,27 @@ def cmd_times():
     # new, new, old), with select and the library call at the same shapes
     for B, N in ((1024, 128), (4096, 128), (1024, 32)):
         A = spd(B, N)
-        inv_k, ld_k = sweep.sweep_inverse(A, "fused")
-        inv_p, ld_p = sweep.sweep_inverse_reference(A, "fused")
-        torch.cuda.synchronize()
-        new = lambda: sweep.sweep_inverse(A, "fused")  # noqa: E731
-        old = lambda: BASELINES["sweep_inverse_fused"](A)  # noqa: E731
-        t = [time_ms(f, 20) for f in (old, new, new, old)]
-        rows.append(dict(
-            kernel="sweep_inverse_fused", batch=B, n=N,
-            bitwise_equal_plain=bool(torch.equal(inv_k, inv_p)
-                                     and torch.equal(ld_k, ld_p)),
-            ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2, turns_ms=t,
-            select_ms=time_ms(lambda: sweep.sweep_inverse(A, "select"), 20),
-            library_ms=time_ms(lambda: library_inverse(A), 10),
-            bound_ms=bound(B, N, A.dtype)[0]))
+        select_ms = time_ms(lambda: sweep.sweep_inverse(A, "select"), 20)
+        library_ms = time_ms(lambda: library_inverse(A), 10)
+        for variant in ("fused", "pair", "blocked"):
+            name = sweep.kernel_name(variant)
+            inv_k, ld_k = sweep.sweep_inverse(A, variant)
+            inv_p, ld_p = sweep.sweep_inverse_reference(A, variant)
+            torch.cuda.synchronize()
+            new = lambda v=variant: sweep.sweep_inverse(A, v)  # noqa: E731
+            old = lambda n=name: BASELINES[n](A)  # noqa: E731
+            t = [time_ms(f, 20) for f in (old, new, new, old)]
+            rows.append(dict(
+                kernel=name, batch=B, n=N,
+                bitwise_equal_plain=bool(torch.equal(inv_k, inv_p)
+                                         and torch.equal(ld_k, ld_p)),
+                max_abs_err=(inv_k - inv_p).abs().max().item(),
+                max_abs_inv=inv_p.abs().max().item(),
+                ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2, turns_ms=t,
+                select_ms=select_ms, library_ms=library_ms,
+                bound_ms=bound(B, N, A.dtype)[0]))
+        del A, inv_k, inv_p
+        torch.cuda.empty_cache()
     for B, N in ((256, 512), (1024, 256)):
         A = spd(B, N)
         ref_inv, ref_ld = blocked_chol.blocked_chol_inverse_reference(A)
@@ -316,11 +362,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=("ptxas", "phases", "times"))
     ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--n", type=int, default=256)
-    ap.add_argument("--variant", choices=blocked_chol.VARIANTS,
+    ap.add_argument("--n", type=int, default=None,
+                    help="default 256; 128 for pair and blocked")
+    ap.add_argument("--variant",
+                    choices=blocked_chol.VARIANTS + tuple(SWEEP_PHASES),
                     default="smem")
     ap.add_argument("--baseline", action="store_true",
-                    help="phases of the first global kernel")
+                    help="phases of the variant's first kernel (global, "
+                    "pair, blocked)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
@@ -331,7 +380,8 @@ def main(argv=None):
     if args.probe == "ptxas":
         cmd_ptxas()
     elif args.probe == "phases":
-        cmd_phases(args.batch, args.n, args.variant, args.baseline)
+        n = args.n or (128 if args.variant in SWEEP_PHASES else 256)
+        cmd_phases(args.batch, n, args.variant, args.baseline)
     else:
         cmd_times()
     return 0

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the sweep in its four step schemes, both variants of the blocked
-Cholesky, and the RBF Gram), and the campaign and the sequential driver on
+Cholesky, and the RBF Gram; the first versions kept as yardsticks), and the campaign and the sequential driver on
 the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
@@ -132,15 +132,90 @@ def test_fused_kernel_matches_plain_f64(cuda, n):
         <= 1e-12
 
 
-def test_fused_kernel_geometry_is_the_wrappers(cuda):
+@pytest.mark.parametrize("variant", ["fused", "pair", "blocked"])
+def test_fused_kernel_geometry_is_the_wrappers(cuda, variant):
+    """Each further scheme's built geometry at every N it takes."""
     for n in range(1, 129):
-        want = sweep.launch_geometry(n, variant="fused")
-        got = sweep.kernel_geometry(n, "fused")
+        if sweep.resolve_variant(n, variant) != variant:
+            continue
+        want = sweep.launch_geometry(n, variant=variant)
+        got = sweep.kernel_geometry(n, variant)
         assert got == {k: want[k] for k in got}, n
+
+
+PAIR_NS = [2, 8, 30, 32, 34, 40, 64, 66, 126, 128]
+
+
+@pytest.mark.parametrize("n", PAIR_NS)
+def test_pair_kernel_equals_plain_bit_for_bit_f32(cuda, n):
+    """The pair kernel repeats ``_sweep_pair``'s operations element by
+    element, the borders' zero terms kept (no FMA), so in float32 it gives
+    the same bits; N crosses the warp path's capacities (2, 8, 30, 32),
+    the CTA path's (34 ... 128) and a pair across its 16-column groups
+    (34, 66, 126), and the batch (37) is no multiple of the matrices a CTA
+    owns."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    before = sweep.sweep_inverse.launches["pair"]
+    inv_k, ld_k = sweep.sweep_inverse(A, "pair")
+    torch.cuda.synchronize()
+    assert sweep.sweep_inverse.launches["pair"] == before + 1
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, "pair")
+    assert torch.equal(inv_k, inv_p)
+    assert torch.equal(ld_k, ld_p)
+
+
+@pytest.mark.parametrize("n", PAIR_NS)
+def test_pair_kernel_matches_plain_f64(cuda, n):
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        dtype=torch.float64, device=cuda)
+    inv_k, ld_k = sweep.sweep_inverse(A, "pair")
+    torch.cuda.synchronize()
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, "pair")
+    assert (inv_k - inv_p).abs().max().item() <= 1e-11 * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [32, 64, 96, 128])
+def test_blocked_sweep_kernel_matches_plain(cuda, n, dtype):
+    """The blocked kernel at every N it takes (32 on the warp path, one
+    panel; 64, 96, 128 on the CTA path, 96 with a masked register tile),
+    batch 37, within chip_smoke.py's TOL_INV / TOL_LOGDET: its rank-32
+    sums run in another order than the library matmul's."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(n), 37, n),
+                        dtype=dtype, device=cuda)
+    before = sweep.sweep_inverse.launches["blocked"]
+    inv_k, ld_k = sweep.sweep_inverse(A, "blocked")
+    torch.cuda.synchronize()
+    assert sweep.sweep_inverse.launches["blocked"] == before + 1
+    inv_p, ld_p = sweep.sweep_inverse_reference(A, "blocked")
+    tol_inv, tol_ld = ((1e-4, 1e-5) if dtype == torch.float32
+                       else (1e-11, 1e-12))
+    assert (inv_k - inv_p).abs().max().item() <= tol_inv * \
+        inv_p.abs().max().item()
+    assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
+        <= tol_ld
+
+
+@pytest.mark.parametrize("variant", ["pair", "blocked"])
+def test_sweep_profiling_build_computes_the_same(cuda, variant):
+    """The -DSWEEP_PROFILE build (clock64 stamps, no added barrier) gives
+    the default build's bits."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(5), 16, 128),
+                        device=cuda)
+    got = sweep._launch(A, variant, ("-DSWEEP_PROFILE",))
+    want = sweep._launch(A, variant)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("name,n", [
     ("sweep_inverse_fused", 40), ("sweep_inverse_fused", 128),
+    ("sweep_inverse_pair", 40), ("sweep_inverse_pair", 128),
+    ("sweep_inverse_blocked", 64), ("sweep_inverse_blocked", 128),
     ("blocked_chol_inverse_global", 200), ("blocked_chol_inverse_global", 512)])
 def test_baseline_kernels_match_plain(cuda, name, n):
     """The first versions, kept to be timed beside the redesigned kernels,
@@ -150,9 +225,10 @@ def test_baseline_kernels_match_plain(cuda, name, n):
                         device=cuda)
     inv_k, ld_k = BASELINES[name](A)
     torch.cuda.synchronize()
-    inv_p, ld_p = (sweep.sweep_inverse_reference(A, "fused")
-                   if name.startswith("sweep")
-                   else blocked_chol.blocked_chol_inverse_reference(A))
+    inv_p, ld_p = (
+        sweep.sweep_inverse_reference(A, name.rsplit("_", 1)[1])
+        if name.startswith("sweep")
+        else blocked_chol.blocked_chol_inverse_reference(A))
     assert (inv_k - inv_p).abs().max().item() <= 1e-4 * \
         inv_p.abs().max().item()
     assert ((ld_k - ld_p).abs() / ld_p.abs().clamp_min(1.0)).max().item() \
@@ -224,12 +300,17 @@ def test_sweep_variant_rejects_what_its_kernel_does_not_take(cuda, variant):
                             .expand(2, 32, 32), variant)
 
 
+@pytest.mark.parametrize("n", [32, 64, 128])
 @pytest.mark.parametrize("variant", sweep.VARIANTS)
-def test_sweep_kernel_of_indefinite_matrix_gives_nan_logdet(cuda, variant):
-    A = torch.eye(32, dtype=torch.float64)
-    A[0, 1] = A[1, 0] = 2.0
-    _, ld = sweep.sweep_inverse(A[None].to(cuda), variant)
-    assert torch.isnan(ld).all()
+def test_sweep_kernel_of_indefinite_matrix_gives_nan_logdet(cuda, variant,
+                                                            n):
+    """N = 32 on the warp path, 64 and 128 on the CTA path, f32 and
+    f64."""
+    for dtype in (torch.float64, torch.float32):
+        A = torch.eye(n, dtype=dtype)
+        A[0, 1] = A[1, 0] = 2.0
+        _, ld = sweep.sweep_inverse(A[None].to(cuda), variant)
+        assert torch.isnan(ld).all()
 
 
 def test_kernel_launches_names_every_kernel(cuda):

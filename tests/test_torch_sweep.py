@@ -165,13 +165,70 @@ def test_select_kernel_launch_geometry(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fused_kernel_launch_geometry_is_selects(dtype):
-    """The fused kernel keeps its matrix in registers as select does, on
-    select's geometry at every N <= 128 (the card test holds the built
-    kernel to it); the schemes in shared memory have no such geometry."""
+    """The fused, pair and blocked kernels keep their matrix in registers
+    as select does, on select's geometry at every N each takes (the card
+    test holds the built kernels to it); an N a scheme does not take and
+    an unknown scheme are refused."""
     for n in range(1, tsw._SWEEP_MAX_N + 1):
-        assert tsw.launch_geometry(n, dtype, "fused") == \
-            tsw.launch_geometry(n, dtype, "select")
-    assert tsw.REGISTER_SCHEMES == ("select", "fused")
-    for variant in ("pair", "blocked"):
-        with pytest.raises(ValueError, match="covers"):
-            tsw.launch_geometry(64, dtype, variant)
+        want = tsw.launch_geometry(n, dtype, "select")
+        assert tsw.launch_geometry(n, dtype, "fused") == want
+        if n % 2 == 0:
+            assert tsw.launch_geometry(n, dtype, "pair") == want
+        if n % tsw.BLOCK == 0:
+            got = tsw.launch_geometry(n, dtype, "blocked")
+            assert {k: got[k] for k in want} == want
+    for variant, n in (("pair", 9), ("blocked", 40)):
+        with pytest.raises(ValueError, match="does not take"):
+            tsw.launch_geometry(n, dtype, variant)
+    with pytest.raises(ValueError, match="unknown sweep variant"):
+        tsw.launch_geometry(64, dtype, "rank2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 8, 30, 32, 34, 40, 64, 66, 126, 128])
+def test_pair_kernel_launch_geometry(n, dtype):
+    """The pair kernel at even N: a warp path up to N = 32 (CAP lanes a
+    matrix, 128 / CAP matrices a CTA of 128 threads), above one matrix a
+    CTA of 16 x 16 threads, whose tile rows and columns cover the
+    capacity; pairs p, q = p + 1 (p even) fall in one register column of
+    two neighbouring threads."""
+    g = tsw.launch_geometry(n, dtype, "pair")
+    if n <= 32:
+        assert g["path"] == "warp" and g["threads"] == 128
+        assert g["matrices_per_cta"] * g["capacity"] == 128
+    else:
+        assert g["path"] == "cta" and g["threads"] == 256
+        assert g["matrices_per_cta"] == 1
+        assert 16 * g["tile"] == g["capacity"] >= n
+        for p in range(0, n, 2):
+            assert p // 16 == (p + 1) // 16 and (p + 1) % 16 == p % 16 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [32, 64, 96, 128])
+def test_blocked_kernel_launch_geometry(n, dtype):
+    """The blocked kernel at N % 32 == 0: N = 32 is one panel on the warp
+    path (a lane holds its column of all 32 rows); above, every one of the
+    256 threads holds the same number of each panel's rows (rows
+    ty + 16 r in register rows 2 b and 2 b + 1), so a panel's pivots keep
+    all threads busy; the rank-32 operands fit the shared memory of the
+    CTAs an SM runs."""
+    g = tsw.launch_geometry(n, dtype, "blocked")
+    if n == 32:
+        assert g["path"] == "warp" and g["capacity"] == 32
+        assert g["matrices_per_cta"] == 4
+        assert g["panel_rows_per_thread"] == tsw.BLOCK
+        return
+    assert g["path"] == "cta" and g["threads"] == 256
+    tile, per = g["tile"], g["panel_rows_per_thread"]
+    assert per == 2
+    for b in range(n // tsw.BLOCK):
+        panel = range(tsw.BLOCK * b, tsw.BLOCK * (b + 1))
+        for ty in range(16):
+            rows = [r for r in range(tile) if ty + 16 * r in panel]
+            assert rows == [2 * b, 2 * b + 1][:per]
+    itemsize = torch.finfo(dtype).bits // 8
+    assert g["shared_bytes"] == tsw.BLOCK * (2 * g["capacity"] + 1) * itemsize
+    # the pivot buffers are static: two columns of 32 and two rows of CAP
+    static = (2 * tsw.BLOCK + 2 * g["capacity"]) * itemsize
+    assert g["ctas_per_sm"] * (g["shared_bytes"] + static) <= 227 * 1024

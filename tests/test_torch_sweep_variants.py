@@ -24,7 +24,9 @@ On the CPU, where the port's wrapper runs the plain version of each scheme:
   own ``mll_via_inverse`` a batch-shaped one, as
   ``tests/test_torch_sweep.py`` does;
 - the kernel N-scaling bench at tiny shapes, and the campaign's stage
-  timer.
+  timer;
+- the kernel probe's phase options for the pair and blocked kernels, as
+  far as they run without a card.
 
 The CUDA kernels are held against the plain versions in
 ``tests/test_torch_cuda.py``, on the card.
@@ -389,3 +391,28 @@ def test_no_environment_variable_selects_a_scheme():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["select"] * 3
+
+
+@pytest.mark.parametrize("variant", ["pair", "blocked"])
+@pytest.mark.parametrize("baseline", [False, True])
+def test_profile_kernels_phases_takes_the_sweep_schemes(variant, baseline):
+    """``profile_kernels phases --variant pair|blocked [--baseline]`` parses
+    and, without a card, stops with code 2 before it builds anything; each
+    scheme has four phases in its stamps' order, and a first version to be
+    timed beside the current kernel."""
+    from scamlgp_tpu_torch import profile_kernels as pk
+    argv = ["phases", "--variant", variant, "--batch", "8"]
+    assert pk.main(argv + ["--baseline"] * baseline) == 2
+    phases = pk.SWEEP_PHASES[variant]
+    assert len(phases) == 4 and phases[0] == "load_store"
+    assert phases[1:] == {"pair": ("rebuild", "update", "barrier"),
+                          "blocked": ("copy", "pivots", "update")}[variant]
+    assert tsw.kernel_name(variant) in pk.BASELINES
+    assert pk.SWEEP_PROFILE_FLAGS == ("-DSWEEP_PROFILE",)
+
+
+def test_profile_kernels_phases_refuses_an_unknown_variant(capsys):
+    from scamlgp_tpu_torch import profile_kernels as pk
+    with pytest.raises(SystemExit):
+        pk.main(["phases", "--variant", "fused"])
+    assert "invalid choice" in capsys.readouterr().err
