@@ -22,14 +22,19 @@ Phases, each printing one JSON line with its own seconds:
    float32 must equal its plain version bit for bit on every float32
    input of the phase (``BITWISE``);
 3b. gram: the RBF Gram kernel (``ops/gram.py``) against its plain version
-   at (n, m, d) = (300, 200, 3), (2048, 2048, 6) and (4096, 1024, 2) in
-   float32 and float64 (atol 2e-5), its gradients against autograd of
-   ``kernels.rbf`` at (300, 200, 3) (rtol 1e-4), and its time at
-   (2048, 2048, 6) and (4096, 4096, 2) in float32 beside the plain
+   at ``GRAM_CHECKS`` in float32 and float64 (atol 2e-5; m % 4 != 0,
+   shapes under one tile, more tiles than resident CTAs), its gradients
+   against autograd of ``kernels.rbf`` at (300, 200, 3) (rtol 1e-4), and
+   its times (``profile_kernels.gram_times``) at (2048, 2048, 6) and
+   (4096, 4096, 2) in float32 and at (4096, 4096, 2) in float64: the
+   kernel alone (``ms_kernel``, outputs rotated beyond the L2) beside its
+   first version (``old_ms``, ``csrc/baseline_kernels.cu``) in turns, the
+   call through ``rbf_gram`` (``ms``) and its host share, the plain
    version, ``kernels.rbf`` (the RBF the port's models compute: an eager
-   expression of a few calls, not one library call) and the bytes
-   bound.  No path of the port launches this kernel, as none of the JAX
-   package does: its count in the kernels line is this phase's;
+   expression of a few calls; no single library call computes this
+   function, so ``library_ms`` is null) and the bytes bound.  No path of
+   the port launches this kernel, as none of the JAX package does: its
+   count in the kernels line is this phase's;
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
@@ -118,9 +123,8 @@ from scamlgp_tpu_torch.parallel.campaign import (
 )
 from scamlgp_tpu_torch.profile_kernels import (
     BASELINES,
-    HBM_BYTES_PER_S,
-    PEAK_OPS,
     bound,
+    gram_times,
     library_inverse,
     time_ms,
 )
@@ -153,9 +157,13 @@ SLICES = {
 META_RESTARTS, META_STEPS = 3, 50
 #: the bench phase's shape and rounds (every variant of the bench)
 BENCH_SHAPE, BENCH_ROUNDS = (4096, 128), 5
-#: the gram phase's checked shapes (the JAX package's test shape first) and
-#: timed shapes, (n, m, d); the kernels line carries the first timed shape
-GRAM_CHECKS = ((300, 200, 3), (2048, 2048, 6), (4096, 1024, 2))
+#: the gram phase's checked shapes (the JAX package's test shape first;
+#: m % 4 != 0 and d = 33, three feature chunks; under one tile; more tiles
+#: than resident CTAs) and timed shapes, (n, m, d), float32, then
+#: (4096, 4096, 2) in float64; the kernels line carries the first timed
+#: shape
+GRAM_CHECKS = ((300, 200, 3), (2048, 2048, 6), (4096, 1024, 2),
+               (129, 131, 33), (3, 5, 1), (4096, 4096, 2))
 GRAM_TIMED = ((2048, 2048, 6), (4096, 4096, 2))
 #: the driver phase: BRANIN_T8_P32_N1_SCAMLGP cut to these studies x
 #: evaluations (its width, 8 tasks x 32 points and the driver's defaults,
@@ -595,26 +603,17 @@ def phase_gram():
                        "dtype": str(dtype), "max_rel_err": grad_err})
         check(grad_err <= 1e-4, f"rbf_gram gradient {dtype}: {grad_err}")
 
-    timed = []
-    for n, m, d in GRAM_TIMED:
-        x, z, ls, os_ = make(n, m, d, torch.float32)
-        t_bytes = ((n * d + m * d + d + 1) * 4 + n * m * 4) / HBM_BYTES_PER_S
-        # per output: 2d for the cross term, 2 for the norms' sum, 3 for the
-        # distance and the clamp, 2 for the scale and the exp's argument, 1
-        # exp
-        t_ops = n * m * (2 * d + 8) / PEAK_OPS[torch.float32]
-        timed.append(dict(
-            n=n, m=m, d=d,
-            ms=time_ms(lambda: gram.rbf_gram(x, z, ls, os_), 50),
-            plain_ms=time_ms(lambda: gram.rbf_gram_plain(x, z, ls, os_), 20),
-            library_ms=time_ms(lambda: kernels.rbf(x, z, ls, os_), 20),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations"))
-        torch.cuda.empty_cache()
+    timed = [gram_times(n, m, d, dtype) for (n, m, d), dtype in
+             [(s, torch.float32) for s in GRAM_TIMED]
+             + [((4096, 4096, 2), torch.float64)]]
+    for t in timed:
+        check(t["max_abs_err"] <= 2e-5 and t["old_max_abs_err"] <= 2e-5,
+              f"rbf_gram timed ({t['n']}, {t['m']}, {t['d']}) {t['dtype']}: "
+              f"{t['max_abs_err']}, first version {t['old_max_abs_err']}")
     launches = gram.rbf_gram.launches
     emit("gram", time.perf_counter() - t0, checks=checks, timed=timed,
          launches=launches)
-    return {"max_abs_err": max_err, **timed[0]}, launches
+    return {**timed[0], "max_abs_err": max_err}, launches
 
 
 class TimedBO(ScaMLGPBO):
@@ -761,6 +760,10 @@ def main():
             "library_ms": head[name]["library_ms"],
             # the first version's time, timed in turns with this one
             "old_ms": head[name].get("old_ms"),
+            # rbf_gram: its own time without the wrapper, and the
+            # wrapper's host share of ms
+            **{k: head[name][k] for k in ("ms_kernel", "host_ms",
+                                          "rbf_eager_ms") if k in head[name]},
             # the kernel's times at its other timed shapes (select at the
             # hm6 p128 meta-fit's and the bench's N = 128, global at the
             # smem variant's shape)

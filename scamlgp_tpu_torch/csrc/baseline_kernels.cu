@@ -1,4 +1,4 @@
-// Yardsticks: the first CUDA versions of two kernels that later redesigns
+// Yardsticks: the first CUDA versions of kernels that later redesigns
 // replaced, kept only so that a probe can time the old kernel beside the
 // new one in the same run.  No path of the port calls them.
 //
@@ -22,6 +22,13 @@
 //     phase, as sweep_variants.cu's current kernels do (pair: load and
 //     store, border rebuild, update pass, barrier waits; blocked: load and
 //     store, R copy, panel pivots, rank-32 update).
+//   baseline_rbf_gram_f32, baseline_rbf_gram_f64: gram.cu's first kernel
+//     (a 64 x 64 output tile a CTA of 256 threads, one CTA a tile, the
+//     tile's scaled rows staged in shared memory 32 features a pass, 4 x 4
+//     outputs a thread 16 columns apart, scalar stores).  Built with
+//     -DGRAM_PROFILE every warp stamps clock64() at the end of each phase,
+//     as gram.cu's current kernel does: staging, norms, cross term, exp and
+//     store, and the waits at its barriers.
 //
 // Built by scamlgp_tpu_torch/ops/cuda_build.py like the other sources;
 // scamlgp_tpu_torch/profile_kernels.py and chip_smoke.py time them.
@@ -715,6 +722,175 @@ int baseline_sweep_launch(bool pair, const void* a, void* inv, void* logdet,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the RBF Gram tile: phase stamps per warp under -DGRAM_PROFILE
+// ---------------------------------------------------------------------------
+
+// GP_COPY (waits for asynchronous copies) stays 0: the first kernel loads
+// synchronously, in GP_STAGE
+enum GramPhase {
+  GP_STAGE, GP_NORMS, GP_CROSS, GP_STORE, GP_BARRIER, GP_COPY, GP_COUNT
+};
+#ifdef GRAM_PROFILE
+// the phase totals, the last slot the warps counted
+__device__ unsigned long long g_baseline_gram_cycles[GP_COUNT + 1];
+#define GPROF_DECL                  \
+  long long gp_last = clock64();    \
+  long long gp_acc[GP_COUNT] = {};
+#define GPROF_MARK(ph)                 \
+  do {                                 \
+    const long long now_ = clock64();  \
+    gp_acc[ph] += now_ - gp_last;      \
+    gp_last = now_;                    \
+  } while (0)
+// A barrier that ends phase ph, its wait counted in GP_BARRIER (the stamp
+// feeds the barrier's predicate, so that it is read before the wait)
+#define GPROF_SYNC(ph)                         \
+  do {                                         \
+    const long long at_ = clock64();           \
+    gp_acc[ph] += at_ - gp_last;               \
+    __syncthreads_or(at_ == 0);                \
+    gp_last = clock64();                       \
+    gp_acc[GP_BARRIER] += gp_last - at_;       \
+  } while (0)
+#define GPROF_FLUSH()                                                   \
+  do {                                                                  \
+    if ((threadIdx.x & 31) == 0) {                                      \
+      for (int p_ = 0; p_ < GP_COUNT; ++p_)                             \
+        atomicAdd(&g_baseline_gram_cycles[p_],                          \
+                  static_cast<unsigned long long>(gp_acc[p_]));         \
+      atomicAdd(&g_baseline_gram_cycles[GP_COUNT], 1ull);               \
+    }                                                                   \
+  } while (0)
+#else
+#define GPROF_DECL
+#define GPROF_MARK(ph) \
+  do {                 \
+  } while (0)
+#define GPROF_SYNC(ph) __syncthreads()
+#define GPROF_FLUSH() \
+  do {                \
+  } while (0)
+#endif
+
+constexpr int kGramTile = 64;   // output tile edge
+constexpr int kGramChunk = 32;  // features staged per pass
+
+template <typename T>
+__global__ void baseline_gram_kernel(const T* __restrict__ x,
+                                     const T* __restrict__ z,
+                                     const T* __restrict__ ls,
+                                     const T* __restrict__ os,
+                                     T* __restrict__ out, int n, int m,
+                                     int d) {
+  __shared__ float xs[kGramTile][kGramChunk + 1];
+  __shared__ float zs[kGramTile][kGramChunk + 1];
+  __shared__ float xn[kGramTile];
+  __shared__ float zn[kGramTile];
+  GPROF_DECL
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int row0 = blockIdx.y * kGramTile;
+  const int col0 = blockIdx.x * kGramTile;
+
+  if (threadIdx.x < kGramTile) {
+    xn[threadIdx.x] = 0.0f;
+  } else if (threadIdx.x < 2 * kGramTile) {
+    zn[threadIdx.x - kGramTile] = 0.0f;
+  }
+  GPROF_SYNC(GP_STAGE);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < d; k0 += kGramChunk) {
+    const int kc = min(kGramChunk, d - k0);
+    for (int idx = threadIdx.x; idx < kGramTile * kGramChunk;
+         idx += kThreads) {
+      const int r = idx / kGramChunk;
+      const int k = idx - r * kGramChunk;
+      float xv = 0.0f, zv = 0.0f;
+      if (k < kc) {
+        const T l = static_cast<T>(static_cast<float>(ls[k0 + k]));
+        if (row0 + r < n) {
+          xv = static_cast<float>(
+              x[static_cast<size_t>(row0 + r) * d + k0 + k] / l);
+        }
+        if (col0 + r < m) {
+          zv = static_cast<float>(
+              z[static_cast<size_t>(col0 + r) * d + k0 + k] / l);
+        }
+      }
+      xs[r][k] = xv;
+      zs[r][k] = zv;
+    }
+    GPROF_SYNC(GP_STAGE);
+    if (threadIdx.x < kGramTile) {
+      float s = xn[threadIdx.x];
+      for (int k = 0; k < kc; ++k) s += xs[threadIdx.x][k] * xs[threadIdx.x][k];
+      xn[threadIdx.x] = s;
+    } else if (threadIdx.x < 2 * kGramTile) {
+      const int r = threadIdx.x - kGramTile;
+      float s = zn[r];
+      for (int k = 0; k < kc; ++k) s += zs[r][k] * zs[r][k];
+      zn[r] = s;
+    }
+    GPROF_MARK(GP_NORMS);
+    for (int k = 0; k < kc; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[ty + 16 * i][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = zs[tx + 16 * j][k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+      }
+    }
+    GPROF_SYNC(GP_CROSS);
+  }
+
+  const float scale = static_cast<float>(os[0]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int row = row0 + r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const int col = col0 + c;
+      if (col >= m) continue;
+      const float d2 = fmaxf(xn[r] - 2.0f * acc[i][j] + zn[c], 0.0f);
+      out[static_cast<size_t>(row) * m + col] =
+          static_cast<T>(scale * expf(-0.5f * d2));
+    }
+  }
+  GPROF_MARK(GP_STORE);
+  GPROF_FLUSH();
+}
+
+template <typename T>
+int baseline_gram_launch(const void* x, const void* z, const void* ls,
+                         const void* os, void* out, int n, int m, int d,
+                         void* stream) {
+  if (n <= 0 || m <= 0) return 0;
+  const dim3 grid((m + kGramTile - 1) / kGramTile,
+                  (n + kGramTile - 1) / kGramTile);
+  baseline_gram_kernel<T><<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(z),
+      static_cast<const T*>(ls), static_cast<const T*>(os),
+      static_cast<T*>(out), n, m, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -792,6 +968,33 @@ int baseline_profile_reset() {
   static const unsigned long long zeros[PH_COUNT + 1] = {};
   return static_cast<int>(
       cudaMemcpyToSymbol(g_baseline_phase_cycles, zeros, sizeof(zeros)));
+}
+#endif
+
+int baseline_rbf_gram_f32(const void* x, const void* z, const void* ls,
+                          const void* os, void* out, int n, int m, int d,
+                          void* stream) {
+  return baseline_gram_launch<float>(x, z, ls, os, out, n, m, d, stream);
+}
+
+int baseline_rbf_gram_f64(const void* x, const void* z, const void* ls,
+                          const void* os, void* out, int n, int m, int d,
+                          void* stream) {
+  return baseline_gram_launch<double>(x, z, ls, os, out, n, m, d, stream);
+}
+
+#ifdef GRAM_PROFILE
+// GP_COUNT phase totals, then the warps counted
+int baseline_gram_profile_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_baseline_gram_cycles,
+      sizeof(unsigned long long) * (GP_COUNT + 1)));
+}
+
+int baseline_gram_profile_reset() {
+  static const unsigned long long zeros[GP_COUNT + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_baseline_gram_cycles, zeros, sizeof(zeros)));
 }
 #endif
 

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 #: the kernel sources, one library each; ``baseline_kernels`` holds the
-#: first versions of two redesigned kernels, timed beside them and on no path
+#: first versions of the redesigned kernels, timed beside them and on no path
 SOURCES = ("sweep_inverse", "sweep_variants", "blocked_chol_inverse", "gram",
            "baseline_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -19,6 +19,10 @@ tangent of ``K.rbf`` and not of the kernel.  The reference pads rows to its
 256-row tiles and features to the MXU's lanes, then slices; the card needs
 neither.
 
+The kernel is persistent: about four CTAs an SM each walk a run of 32 x 128
+output tiles, storing 16-byte runs where the rows allow it
+(``launch_geometry`` mirrors its launch rule).
+
 The JAX package calls none of this outside its tests, and neither does the
 port.
 """
@@ -58,12 +62,60 @@ def rbf_gram_plain(x, z, lengthscale, outputscale=1.0) -> torch.Tensor:
     return (os32 * torch.exp(-0.5 * d2)).to(x.dtype)
 
 
+# csrc/gram.cu's launch rule: a tile of ROWS x COLS outputs, THREADS a CTA,
+# at most CTAS_PER_SM CTAs an SM, features staged CHUNK at a time
+ROWS, COLS, THREADS, CTAS_PER_SM, CHUNK = 32, 128, 256, 4, 12
+#: the SMs of an H100 SXM, launch_geometry's default
+H100_SMS = 132
+
+
+def launch_geometry(n: int, m: int, d: int,
+                    dtype: torch.dtype = torch.float32,
+                    sms: int = H100_SMS) -> dict:
+    """How ``csrc/gram.cu`` launches at (n, m, d) on a card of ``sms``
+    SMs: the (n, m) output in ``tiles`` tiles of ``tile`` = (32, 128), at
+    most ``ctas_per_sm`` x sms CTAs of ``threads`` threads, each taking
+    ``tiles_per_cta`` consecutive tiles (row-major); ``grid`` is the fewest
+    CTAs that cover the tiles at that count.  Features are staged ``chunk``
+    at a time in ``chunks`` passes.  ``vector_stores``: the rows start on
+    16 bytes (m a multiple of 4 floats or 2 doubles), so full runs of 16
+    bytes are stored at once (the kernel also needs a 16-byte aligned
+    output, which ``torch.empty`` gives).  ``shared_bytes``: the dynamic
+    shared memory of a CTA, two buffers of each part (the scaled float32
+    chunk of the tile's z and x rows, their squared norms, and their raw
+    rows in the input's type, padded to an odd stride);
+    ``scratch_bytes``: device memory besides the output, none."""
+    if n < 1 or m < 1 or d < 0:
+        raise ValueError(f"the Gram kernel takes n, m >= 1 and d >= 0, got "
+                         f"({n}, {m}, {d})")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the Gram kernel takes float32 or float64, not "
+                        f"{dtype}")
+    elem = torch.finfo(dtype).bits // 8
+    tiles_n = -(-m // COLS)
+    tiles = -(-n // ROWS) * tiles_n
+    per = -(-tiles // (sms * CTAS_PER_SM))
+    kc = min(d, CHUNK)
+    stride = kc | 1
+    shared = 2 * (4 * (kc + 1) * (COLS + ROWS)
+                  + elem * (COLS + ROWS) * stride)
+    return {"threads": THREADS, "tile": (ROWS, COLS),
+            "ctas_per_sm": CTAS_PER_SM, "tiles": tiles,
+            "tiles_per_cta": per, "grid": -(-tiles // per), "chunk": CHUNK,
+            "chunks": max(1, -(-d // CHUNK)),
+            "vector_stores": m % (16 // elem) == 0,
+            "shared_bytes": shared, "scratch_bytes": 0}
+
+
 _C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(dtype: torch.dtype):
-    lib = cuda_build.load("gram")
+def _kernel_fn(dtype: torch.dtype, extra: tuple = ()):
+    """The entry point for ``dtype`` and the error-string function of
+    ``csrc/gram.cu`` built with ``extra`` flags (a profiling build's
+    ``-D`` macro)."""
+    lib = cuda_build.load("gram", extra)
     fn = getattr(lib, "rbf_gram_f32" if dtype == torch.float32
                  else "rbf_gram_f64")
     fn.argtypes = _C_ARGS
@@ -74,34 +126,63 @@ def _kernel_fn(dtype: torch.dtype):
     return fn, err
 
 
-def _launch(x, z, lengthscale, outputscale) -> torch.Tensor:
-    """Checks the inputs and runs the kernel, counted in
-    ``rbf_gram.launches``; an empty output launches nothing."""
+def kernel_geometry(n: int, m: int, d: int,
+                    dtype: torch.dtype = torch.float32,
+                    sms: int = H100_SMS) -> dict:
+    """The geometry that the built kernel reports at (n, m, d) on ``sms``
+    SMs (``rbf_gram_geometry``), in ``launch_geometry``'s keys; the card
+    tests hold the two equal."""
+    fn = cuda_build.load("gram").rbf_gram_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 4)()
+    fn(n, m, d, torch.finfo(dtype).bits // 8, sms, ctypes.addressof(out))
+    return {"grid": out[0], "tiles_per_cta": out[1], "chunks": out[2],
+            "shared_bytes": out[3]}
+
+
+def prepare(x, z, lengthscale, outputscale):
+    """The kernel's operands: x and z checked and contiguous, the
+    lengthscales broadcast to (d,) and the outputscale to (1,), in x's
+    type on x's device."""
     if x.ndim != 2 or z.ndim != 2 or x.shape[1] != z.shape[1]:
         raise ValueError(f"rbf_gram takes x (n, d) and z (m, d), got "
                          f"{tuple(x.shape)} and {tuple(z.shape)}")
     if x.dtype not in (torch.float32, torch.float64) or z.dtype != x.dtype:
         raise TypeError(f"rbf_gram takes float32 or float64 inputs of one "
                         f"type, not {x.dtype} and {z.dtype}")
-    n, d = x.shape
-    m = z.shape[0]
+    d = x.shape[1]
     ls = torch.broadcast_to(_as_tensor(lengthscale, x).to(x.dtype),
                             (d,)).contiguous()
     os_ = _as_tensor(outputscale, x).to(x.dtype).reshape(1)
     if any(t.device != x.device for t in (z, ls, os_)):
         raise ValueError("rbf_gram needs every input on one CUDA device")
-    x, z = x.contiguous(), z.contiguous()
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn, err_string = _kernel_fn(x.dtype)
+    return x.contiguous(), z.contiguous(), ls, os_
+
+
+def run(x, z, ls, os_, out, extra: tuple = ()) -> torch.Tensor:
+    """Launches the kernel (``extra``: the flags of another build) on
+    ``prepare``'s operands into ``out`` (n, m); counts nothing."""
+    fn, err_string = _kernel_fn(x.dtype, extra)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), z.data_ptr(), ls.data_ptr(), os_.data_ptr(),
-                 out.data_ptr(), n, m, d,
+                 out.data_ptr(), out.shape[0], out.shape[1], x.shape[1],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("rbf_gram kernel launch failed: "
                            + err_string(err).decode())
+    return out
+
+
+def _launch(x, z, lengthscale, outputscale) -> torch.Tensor:
+    """Checks the inputs and runs the kernel, counted in
+    ``rbf_gram.launches``; an empty output launches nothing."""
+    x, z, ls, os_ = prepare(x, z, lengthscale, outputscale)
+    out = torch.empty((x.shape[0], z.shape[0]), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    run(x, z, ls, os_, out)
     rbf_gram.launches += 1
     return out
 

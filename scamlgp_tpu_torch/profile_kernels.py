@@ -2,7 +2,7 @@
 
     python -m scamlgp_tpu_torch.profile_kernels ptxas
     python -m scamlgp_tpu_torch.profile_kernels phases [--batch B] [--n N]
-        [--variant smem|global|pair|blocked] [--baseline]
+        [--d D] [--variant smem|global|pair|blocked|gram] [--baseline]
     python -m scamlgp_tpu_torch.profile_kernels times
 
 - ``ptxas``: builds every kernel source with ``-Xptxas -v`` and prints each
@@ -26,16 +26,28 @@
   through each barrier's predicate; ``blocked``: load and store, R and W
   staging (the first version's R copy), panel pivots, rank-32 update, each
   with the waits at its barriers), with ``--baseline`` for the first
-  version.
+  version.  ``--variant gram`` (default (n, m, d) = (4096, 4096, 2), n = m
+  = ``--n``, d = ``--d``): the RBF Gram kernel built with
+  ``-DGRAM_PROFILE``, every warp stamping ``clock64()`` at the end of each
+  phase (staging, norms, cross term, exp and store, the waits at its
+  barriers, and the current kernel's waits for its own asynchronous
+  copies; it sums the norms while it stages, so its ``norms`` is 0);
+  ``--baseline``: the first Gram kernel.
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
   the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
   blocked-Cholesky kernel beside their first versions (``BASELINES``),
   timed in turns (old, new, new, old), with ``select``, ``smem`` and the
-  library call at the same shapes; and whether ``select``, ``fused`` and
-  ``pair`` in float32 equal their plain versions bit for bit.
+  library call at the same shapes; whether ``select``, ``fused`` and
+  ``pair`` in float32 equal their plain versions bit for bit; and the RBF
+  Gram kernel at ``GRAM_TIMED`` in float32 and at (4096, 4096, 2) in
+  float64 (``gram_times``): the kernel alone beside its first version in
+  turns, its outputs rotated over ``GRAM_OUTS`` buffers, a ``fill_`` of
+  the same outputs, the profiler's device time of the same launches, and
+  the time through ``rbf_gram``.
 
-``time_ms``, ``library_inverse`` and ``bound`` are also ``chip_smoke.py``'s.
+``time_ms``, ``library_inverse``, ``bound`` and ``gram_times`` are also
+``chip_smoke.py``'s.
 
 Needs a CUDA device and nvcc; the card's name and power limit head the
 output.
@@ -49,10 +61,12 @@ import functools
 import json
 import subprocess
 import sys
+import time
 
 import torch
 
-from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, gram, sweep
+from scamlgp_tpu_torch.ops import kernels as K
 
 PHASES = ("load", "diag", "trsm", "syrk", "trinv", "wtw_store")
 PROFILE_FLAGS = ("-DBLOCKED_CHOL_PROFILE",)
@@ -60,6 +74,15 @@ PROFILE_FLAGS = ("-DBLOCKED_CHOL_PROFILE",)
 SWEEP_PHASES = {"pair": ("load_store", "rebuild", "update", "barrier"),
                 "blocked": ("load_store", "copy", "pivots", "update")}
 SWEEP_PROFILE_FLAGS = ("-DSWEEP_PROFILE",)
+#: the Gram kernels' phases, in the order of their stamps' slots
+GRAM_PHASES = ("stage", "norms", "cross", "exp_store", "barrier",
+               "copy_wait")
+GRAM_PROFILE_FLAGS = ("-DGRAM_PROFILE",)
+#: the Gram kernel's timed shapes (n, m, d), float32, and the output
+#: buffers that its kernel-only times rotate over: four outputs of the
+#: smaller shape (16.8 MB each) overrun the H100's 50 MB L2
+GRAM_TIMED = ((2048, 2048, 6), (4096, 4096, 2))
+GRAM_OUTS = 4
 # H100 SXM data-sheet peaks: HBM bandwidth; float32 and float64 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -73,7 +96,8 @@ _P = ctypes.c_void_p
 def baseline_lib(extra: tuple = ()):
     """``csrc/baseline_kernels.cu``: the first versions of the ``global``
     blocked-Cholesky kernel and the ``fused``, ``pair`` and ``blocked``
-    sweep kernels, float32, kept as yardsticks."""
+    sweep kernels, float32, and of the RBF Gram kernel, float32 and
+    float64, kept as yardsticks."""
     lib = cuda_build.load("baseline_kernels", extra)
     lib.baseline_global_f32.argtypes = [_P] * 4 + [ctypes.c_longlong,
                                                    ctypes.c_int, _P]
@@ -82,9 +106,28 @@ def baseline_lib(extra: tuple = ()):
         fn = getattr(lib, f"baseline_{name}_f32")
         fn.argtypes = [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
+    for name in ("baseline_rbf_gram_f32", "baseline_rbf_gram_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = gram._C_ARGS
+        fn.restype = ctypes.c_int
     lib.baseline_error_string.argtypes = [ctypes.c_int]
     lib.baseline_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def baseline_gram(x, z, ls, os_, out, lib=None):
+    """The first Gram kernel on ``gram.prepare``'s operands into ``out``
+    (n, m); a bare launch, as ``gram.run`` is."""
+    lib = lib or baseline_lib()
+    fn = (lib.baseline_rbf_gram_f32 if x.dtype == torch.float32
+          else lib.baseline_rbf_gram_f64)
+    err = fn(x.data_ptr(), z.data_ptr(), ls.data_ptr(), os_.data_ptr(),
+             out.data_ptr(), out.shape[0], out.shape[1], x.shape[1],
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("baseline rbf_gram launch failed: "
+                           + lib.baseline_error_string(err).decode())
+    return out
 
 
 def _baseline(A, name, lib=None):
@@ -179,6 +222,142 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(launch, reps):
+    """ms of one ``launch(i)`` on the device alone: the timed launches are
+    queued behind a spin of the device (``torch.cuda._sleep``) longer than
+    the host takes to issue them, so that the events time back-to-back
+    kernels and not the host's ``ctypes`` calls."""
+    for i in range(3):
+        launch(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        launch(i)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # about 2e9 cycles a second: spin for twice the host's issue time
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)
+    start.record()
+    for i in range(reps):
+        launch(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_ms(launch, reps, kernel):
+    """The profiler's mean device time of the kernels whose name holds
+    ``kernel`` over ``reps`` launches, in ms; None if it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            launch(i)
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += (getattr(ev, "device_time_total", 0)
+                         or getattr(ev, "cuda_time_total", 0))
+            count += ev.count
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def gram_operands(n, m, d, dtype, seed=7):
+    """x, z uniform on [0, 1), lengthscales on [0.3, 1) and the
+    outputscale 1.3, made on the card, as ``rbf_gram`` takes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((n, d), generator=g, device="cuda", dtype=dtype)
+    z = torch.rand((m, d), generator=g, device="cuda", dtype=dtype)
+    ls = 0.3 + 0.7 * torch.rand(d, generator=g, device="cuda", dtype=dtype)
+    return x, z, ls, torch.tensor(1.3, device="cuda", dtype=dtype)
+
+
+def gram_bound(n, m, d, dtype):
+    """Least time for the Gram of x (n, d) and z (m, d): one read of the
+    inputs and one write of the (n, m) output at the HBM rate, against
+    (2 d + 8) operations an output (2 d for the cross term, 2 for the
+    norms' sum, 3 for the distance and the clamp, 2 for the scale and the
+    exp's argument, 1 exp) at the float32 peak: the arithmetic is float32
+    whatever the inputs' type."""
+    itemsize = torch.finfo(dtype).bits // 8
+    t_bytes = ((n * d + m * d + d + 1) + n * m) * itemsize / HBM_BYTES_PER_S
+    t_ops = n * m * (2 * d + 8) / PEAK_OPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_times(n, m, d, dtype=torch.float32, reps=100):
+    """The RBF Gram kernel at (n, m, d): its own time (``ms_kernel``:
+    bare launches through ``gram.run`` on operands prepared once, each
+    into the next of ``GRAM_OUTS`` outputs, ``device_ms``) beside the
+    first version's (``old_ms``), timed in turns (old, new, new, old); the
+    same with one output (``ms_kernel_one_out``, ``old_ms_one_out``), which
+    the L2 may hold; ``fill_ms``, a store-only yardstick: ``Tensor.fill_``
+    of the same outputs in the same turns, what the card's store stream
+    gives at this size; the profiler's device time of the same launches;
+    the time through ``rbf_gram`` (``ms``: the wrapper's casts, checks and
+    allocation included, as a caller sees it) and its host share
+    (``host_ms`` = ms - ms_kernel); the plain version, ``kernels.rbf`` (the
+    RBF the port's models compute: an eager expression of several calls;
+    no single PyTorch call computes this function, so ``library_ms`` is
+    None) and the bound."""
+    x, z, ls, os_ = gram_operands(n, m, d, dtype)
+    ops = gram.prepare(x, z, ls, os_)
+    outs = [torch.empty((n, m), dtype=dtype, device="cuda")
+            for _ in range(GRAM_OUTS)]
+    ref = gram.rbf_gram_plain(x, z, ls, os_)
+    new_k = gram.run(*ops, outs[0]).clone()
+    old_k = baseline_gram(*ops, outs[1]).clone()
+    torch.cuda.synchronize()
+    err = (new_k - ref).abs().max().item()
+    old_err = (old_k - ref).abs().max().item()
+    del new_k, old_k, ref
+
+    def new(i, outs=outs):
+        gram.run(*ops, outs[i % len(outs)])
+
+    def old(i, outs=outs):
+        baseline_gram(*ops, outs[i % len(outs)])
+
+    def fill(i, outs=outs):
+        outs[i % len(outs)].fill_(0.5)
+
+    t = [device_ms(f, reps) for f in (old, new, fill, fill, new, old)]
+    t = t[:2] + t[4:] + t[2:4]  # (old, new, new, old), then the fills
+    one = [device_ms(lambda i, f=f: f(i, outs[:1]), reps)
+           for f in (old, new, new, old)]
+    bound_ms, bound_by = gram_bound(n, m, d, dtype)
+    row = dict(
+        n=n, m=m, d=d, dtype=str(dtype).replace("torch.", ""),
+        geometry=gram.launch_geometry(
+            n, m, d, dtype,
+            torch.cuda.get_device_properties(0).multi_processor_count),
+        max_abs_err=err, old_max_abs_err=old_err,
+        ms_kernel=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2,
+        fill_ms=(t[4] + t[5]) / 2, turns_ms=t,
+        ms_kernel_one_out=(one[1] + one[2]) / 2,
+        old_ms_one_out=(one[0] + one[3]) / 2,
+        profiler_ms=profiled_ms(new, reps, "rbf_gram_kernel"),
+        old_profiler_ms=profiled_ms(old, reps, "baseline_gram_kernel"),
+        outs=len(outs), out_bytes=outs[0].numel() * outs[0].element_size())
+    del outs
+    row["ms"] = time_ms(lambda: gram.rbf_gram(x, z, ls, os_), 50)
+    row["host_ms"] = row["ms"] - row["ms_kernel"]
+    row["write_tb_per_s"] = row["out_bytes"] / row["ms_kernel"] / 1e9
+    row.update(plain_ms=time_ms(lambda: gram.rbf_gram_plain(x, z, ls, os_),
+                                20),
+               rbf_eager_ms=time_ms(lambda: K.rbf(x, z, ls, os_), 20),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.empty_cache()
+    return row
+
+
 def library_inverse(A):
     """Yardstick only, on no path of the port: library Cholesky inverse
     and the log-determinant from the factor's diagonal."""
@@ -207,6 +386,57 @@ def cmd_ptxas():
         lines = [ln.strip() for ln in cuda_build.BUILD_LOGS[str(path)]
                  .splitlines() if "ptxas info" in ln or "spill" in ln]
         _emit(probe="ptxas", source=name, lines=lines)
+
+
+def cmd_gram_phases(n: int, d: int, baseline: bool = False):
+    """One Gram launch's phase profile at (n, n, d) float32: mean cycles a
+    warp in each of ``GRAM_PHASES`` (the current kernel sums the norms
+    while it stages, so its ``norms`` is 0; the first one loads
+    synchronously, so its ``copy_wait`` is 0), with the kernel's own time
+    in the default and the profiling build."""
+    x, z, ls, os_ = gram.prepare(*gram_operands(n, n, d, torch.float32))
+    out, ref = (torch.empty((n, n), device="cuda") for _ in range(2))
+    if baseline:
+        lib = baseline_lib(GRAM_PROFILE_FLAGS)
+        read, reset = (lib.baseline_gram_profile_read,
+                       lib.baseline_gram_profile_reset)
+        name = "baseline_rbf_gram"
+        launch = lambda i=0: baseline_gram(x, z, ls, os_, out, lib)  # noqa
+        default = lambda i=0: baseline_gram(x, z, ls, os_, ref)  # noqa
+    else:
+        lib = cuda_build.load("gram", GRAM_PROFILE_FLAGS)
+        read, reset = lib.gram_profile_read, lib.gram_profile_reset
+        name = "rbf_gram"
+        launch = lambda i=0: gram.run(  # noqa: E731
+            x, z, ls, os_, out, GRAM_PROFILE_FLAGS)
+        default = lambda i=0: gram.run(x, z, ls, os_, ref)  # noqa: E731
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = reset.restype = ctypes.c_int
+    reset.argtypes = []
+    launch()
+    torch.cuda.synchronize()
+    if reset():
+        raise RuntimeError("phase profile reset failed")
+    launch()
+    default()
+    torch.cuda.synchronize()
+    totals = (ctypes.c_ulonglong * (len(GRAM_PHASES) + 1))()
+    if read(ctypes.addressof(totals)):
+        raise RuntimeError("phase profile read failed")
+    count = totals[len(GRAM_PHASES)]
+    if count == 0:
+        raise RuntimeError(f"{name} stamped nothing at n={n}")
+    cycles = {p: totals[i] / count for i, p in enumerate(GRAM_PHASES)}
+    whole = sum(cycles.values())
+    _emit(probe="phases", kernel=name, n=n, m=n, d=d, dtype="float32",
+          warps=count, cycles_per_warp=cycles,
+          share={p: c / whole for p, c in cycles.items()},
+          cycles_per_warp_total=whole,
+          geometry=None if baseline else gram.launch_geometry(
+              n, n, d, torch.float32,
+              torch.cuda.get_device_properties(0).multi_processor_count),
+          ms=device_ms(default, 50), ms_profiling_build=device_ms(launch, 50),
+          profiling_build_equal=bool(torch.equal(out, ref)))
 
 
 def cmd_phases(batch: int, n: int, variant: str, baseline: bool = False):
@@ -356,6 +586,9 @@ def cmd_times():
         torch.cuda.empty_cache()
     for row in rows:
         _emit(probe="times", dtype="float32", **row)
+    for shape, dtype in ([(s, torch.float32) for s in GRAM_TIMED]
+                         + [((4096, 4096, 2), torch.float64)]):
+        _emit(probe="times", kernel="rbf_gram", **gram_times(*shape, dtype))
 
 
 def main(argv=None):
@@ -363,13 +596,16 @@ def main(argv=None):
     ap.add_argument("probe", choices=("ptxas", "phases", "times"))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--n", type=int, default=None,
-                    help="default 256; 128 for pair and blocked")
+                    help="default 256; 128 for pair and blocked; 4096 "
+                    "(n = m) for gram")
+    ap.add_argument("--d", type=int, default=2, help="gram's features")
     ap.add_argument("--variant",
-                    choices=blocked_chol.VARIANTS + tuple(SWEEP_PHASES),
+                    choices=(blocked_chol.VARIANTS + tuple(SWEEP_PHASES)
+                             + ("gram",)),
                     default="smem")
     ap.add_argument("--baseline", action="store_true",
                     help="phases of the variant's first kernel (global, "
-                    "pair, blocked)")
+                    "pair, blocked, gram)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
@@ -379,6 +615,8 @@ def main(argv=None):
           nvidia_smi=_card(), torch=torch.__version__, cuda=torch.version.cuda)
     if args.probe == "ptxas":
         cmd_ptxas()
+    elif args.probe == "phases" and args.variant == "gram":
+        cmd_gram_phases(args.n or 4096, args.d, args.baseline)
     elif args.probe == "phases":
         n = args.n or (128 if args.variant in SWEEP_PHASES else 256)
         cmd_phases(args.batch, n, args.variant, args.baseline)

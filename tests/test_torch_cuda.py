@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the sweep in its four step schemes, both variants of the blocked
-Cholesky, and the RBF Gram; the first versions kept as yardsticks), and the campaign and the sequential driver on
+Cholesky, and the RBF Gram; the first versions kept as yardsticks), and the
+campaign and the sequential driver on
 the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
@@ -480,19 +481,31 @@ def test_sweep_variant_campaign_on_the_card_matches_the_cpu(cuda, variant):
     torch.testing.assert_close(xs[1], xs[0], rtol=1e-6, atol=1e-8)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,m,d", [(1, 1, 1), (300, 200, 3), (257, 513, 6),
-                                   (130, 70, 40), (2048, 2048, 6)])
-def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
-    """The RBF Gram kernel against its plain version on the card, atol 2e-5
-    (the JAX package's tolerance for this kernel); d = 40 takes two feature
-    chunks."""
+GRAM_SHAPES = [(1, 1, 1), (300, 200, 3), (257, 513, 6), (130, 70, 40),
+               (2048, 2048, 6), (129, 131, 33), (3, 5, 1), (4096, 4096, 2)]
+
+
+def _gram_inputs(n, m, d, dtype, device):
     rng = np.random.default_rng(n + d)
-    x, z = (torch.as_tensor(rng.uniform(size=s), dtype=dtype, device=cuda)
+    x, z = (torch.as_tensor(rng.uniform(size=s), dtype=dtype, device=device)
             for s in ((n, d), (m, d)))
     ls = torch.as_tensor(rng.uniform(0.3, 1.0, size=d), dtype=dtype,
-                         device=cuda)
-    os_ = torch.tensor(1.3, dtype=dtype, device=cuda)
+                         device=device)
+    return x, z, ls, torch.tensor(1.3, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,d", GRAM_SHAPES)
+def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
+    """The RBF Gram kernel against its plain version on the card, atol 2e-5
+    (the JAX package's tolerance for this kernel).  The shapes reach every
+    branch: d = 33 and 40 take three and two feature chunks; rows that do
+    not start on 16 bytes (m % 4 != 0 in float32: 1, 513, 70, 131, 5; m
+    odd in float64) take the element-wise stores, the others 16-byte runs
+    with element-wise stores at the ragged tile edge; (3, 5, 1) is under
+    one tile; (4096, 4096, 2) has more tiles than resident CTAs (8 a CTA on
+    an H100)."""
+    x, z, ls, os_ = _gram_inputs(n, m, d, dtype, cuda)
     before = gram.rbf_gram.launches
     Kk = gram.rbf_gram(x, z, ls, os_)
     torch.cuda.synchronize()
@@ -500,6 +513,63 @@ def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
     assert Kk.dtype == dtype and Kk.shape == (n, m)
     Kp = gram.rbf_gram_plain(x, z, ls, os_)
     assert (Kk - Kp).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,d", [(3, 5, 1), (129, 131, 33),
+                                   (2048, 2048, 6), (4096, 4096, 2)])
+def test_gram_kernel_matches_its_first_version(cuda, n, m, d, dtype):
+    """The redesigned kernel against the first one
+    (``baseline_rbf_gram``, ``csrc/baseline_kernels.cu``) on the same
+    operands, atol 2e-5."""
+    from scamlgp_tpu_torch.profile_kernels import baseline_gram
+    ops = gram.prepare(*_gram_inputs(n, m, d, dtype, cuda))
+    new = gram.run(*ops, torch.empty((n, m), dtype=dtype, device=cuda))
+    old = baseline_gram(*ops, torch.empty((n, m), dtype=dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert (new - old).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_kernel_geometry_is_the_wrappers(cuda, dtype):
+    """The built kernel's launch rule (``rbf_gram_geometry``) is
+    ``gram.launch_geometry``'s, on this card's SMs and on others."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, m, d in GRAM_SHAPES + [(64, 128, 0), (100, 384, 16)]:
+        for s in (1, 2, sms):
+            want = gram.launch_geometry(n, m, d, dtype, s)
+            got = gram.kernel_geometry(n, m, d, dtype, s)
+            assert got == {k: want[k] for k in got}, (n, m, d, s)
+
+
+def test_gram_kernel_takes_an_unaligned_output(cuda):
+    """An output that does not start on 16 bytes takes the element-wise
+    stores, and the kernel writes nothing outside it."""
+    n, m, d = 64, 256, 3
+    ops = gram.prepare(*_gram_inputs(n, m, d, torch.float32, cuda))
+    buf = torch.full((n * m + 2,), float("nan"), device=cuda)
+    out = gram.run(*ops, buf[1:1 + n * m].view(n, m))
+    torch.cuda.synchronize()
+    assert (out - gram.rbf_gram_plain(*ops)).abs().max().item() <= 2e-5
+    assert bool(torch.isnan(buf[0])) and bool(torch.isnan(buf[-1]))
+
+
+@pytest.mark.parametrize("baseline", [False, True])
+def test_gram_profiling_build_computes_the_same(cuda, baseline):
+    """The -DGRAM_PROFILE builds (clock64 stamps) give the default
+    builds' bits."""
+    from scamlgp_tpu_torch import profile_kernels as pk
+    n, m, d = 257, 513, 6
+    ops = gram.prepare(*_gram_inputs(n, m, d, torch.float32, cuda))
+    outs = [torch.empty((n, m), device=cuda) for _ in range(2)]
+    if baseline:
+        pk.baseline_gram(*ops, outs[0], pk.baseline_lib(pk.GRAM_PROFILE_FLAGS))
+        pk.baseline_gram(*ops, outs[1])
+    else:
+        gram.run(*ops, outs[0], pk.GRAM_PROFILE_FLAGS)
+        gram.run(*ops, outs[1])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_gram_kernel_gradient_on_the_card(cuda):

@@ -11,6 +11,9 @@ kernel runs in interpret mode off the TPU.
   outputscale, rtol 1e-6 in float64: both are the VJP of the plain RBF.
 - The launch count counts launches only: an empty output launches
   nothing and leaves it as it was.
+- ``launch_geometry``, the kernel's launch rule in Python: every tile
+  taken once by a CTA, at most four CTAs an SM, the 16-byte store path
+  only where rows start on 16 bytes, shared memory within four CTAs an SM.
 
 The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
 """
@@ -33,7 +36,8 @@ def inputs(n, m, d, seed=0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n,m,d", [(300, 200, 3), (257, 513, 6), (1, 1, 1)])
+@pytest.mark.parametrize("n,m,d", [(300, 200, 3), (257, 513, 6), (1, 1, 1),
+                                   (129, 131, 33), (3, 5, 1)])
 def test_plain_matches_the_pallas_kernel(n, m, d, dtype):
     x, z, ls, os_ = inputs(n, m, d)
     jdt = getattr(jnp, dtype)
@@ -99,3 +103,69 @@ def test_wrapper_rejects_a_device_it_does_not_run_on():
     with pytest.raises(ValueError, match="cpu or cuda"):
         gram.rbf_gram(x, x, torch.ones(2, device="meta"),
                       torch.ones((), device="meta"))
+
+
+@pytest.mark.parametrize("n,m,d,dtype,sms,want", [
+    # (grid, tiles_per_cta, chunks, vector_stores)
+    (4096, 4096, 2, torch.float32, 132, (512, 8, 1, True)),
+    (2048, 2048, 6, torch.float32, 132, (512, 2, 1, True)),
+    (4096, 4096, 2, torch.float64, 132, (512, 8, 1, True)),
+    (129, 131, 33, torch.float32, 132, (10, 1, 3, False)),
+    (129, 130, 33, torch.float64, 132, (10, 1, 3, True)),
+    (3, 5, 1, torch.float32, 132, (1, 1, 1, False)),
+    (257, 513, 6, torch.float64, 1, (4, 12, 1, False)),
+    (64, 128, 0, torch.float32, 2, (2, 1, 1, True)),
+])
+def test_launch_geometry(n, m, d, dtype, sms, want):
+    """The kernel's launch rule (``csrc/gram.cu::geometry`` and ``layout``;
+    the card tests hold the built kernel to it)."""
+    g = gram.launch_geometry(n, m, d, dtype, sms)
+    assert (g["grid"], g["tiles_per_cta"], g["chunks"],
+            g["vector_stores"]) == want
+    rows, cols = g["tile"]
+    assert g["tiles"] == -(-n // rows) * -(-m // cols)
+    # every tile taken by exactly one CTA, and no CTA without one
+    assert (g["grid"] - 1) * g["tiles_per_cta"] < g["tiles"] <= \
+        g["grid"] * g["tiles_per_cta"]
+    assert g["grid"] <= g["ctas_per_sm"] * sms
+    assert g["threads"] == 256 and g["scratch_bytes"] == 0
+    # four CTAs an SM fit the H100's 228 KiB of shared memory, 1 KiB of it
+    # reserved a CTA
+    assert g["ctas_per_sm"] * (g["shared_bytes"] + 1024) <= 228 * 1024
+    assert g["chunks"] * g["chunk"] >= d
+
+
+def test_launch_geometry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        gram.launch_geometry(0, 5, 2)
+    with pytest.raises(TypeError):
+        gram.launch_geometry(5, 5, 2, torch.float16)
+
+
+@pytest.mark.parametrize("baseline", [False, True])
+def test_profile_kernels_phases_takes_gram(baseline):
+    """``profile_kernels phases --variant gram [--baseline]`` parses and,
+    without a card, stops with code 2 before it builds anything; the Gram
+    kernels' stamps have six slots."""
+    from scamlgp_tpu_torch import profile_kernels as pk
+    argv = ["phases", "--variant", "gram", "--n", "256", "--d", "6"]
+    assert pk.main(argv + ["--baseline"] * baseline) == 2
+    assert pk.GRAM_PHASES == ("stage", "norms", "cross", "exp_store",
+                              "barrier", "copy_wait")
+    assert pk.GRAM_PROFILE_FLAGS == ("-DGRAM_PROFILE",)
+    # the kernel-only times rotate over outputs that overrun a 50 MB L2
+    n, m, _ = pk.GRAM_TIMED[0]
+    assert pk.GRAM_OUTS >= 4 and pk.GRAM_OUTS * n * m * 4 > 50e6
+
+
+def test_gram_bound_is_the_output_bytes():
+    """At the timed shapes the bound is the bytes: the inputs read and the
+    (n, m) output written once at 3.35 TB/s, twice as long in float64."""
+    from scamlgp_tpu_torch import profile_kernels as pk
+    for n, m, d in pk.GRAM_TIMED:
+        ms, by = pk.gram_bound(n, m, d, torch.float32)
+        assert by == "bytes"
+        assert ms == pytest.approx(
+            (n * d + m * d + d + 1 + n * m) * 4 / 3.35e9, rel=1e-12)
+        ms64, _ = pk.gram_bound(n, m, d, torch.float64)
+        assert ms64 == pytest.approx(2 * ms, rel=1e-12)
