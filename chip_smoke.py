@@ -28,13 +28,16 @@ Phases, each printing one JSON line with its own seconds:
    its times (``profile_kernels.gram_times``) at (2048, 2048, 6) and
    (4096, 4096, 2) in float32 and at (4096, 4096, 2) in float64: the
    kernel alone (``ms_kernel``, outputs rotated beyond the L2) beside its
-   first version (``old_ms``, ``csrc/baseline_kernels.cu``) in turns, the
-   call through ``rbf_gram`` (``ms``) and its host share, the plain
+   first version (``old_ms``, ``csrc/baseline_kernels.cu``) in turns and a
+   ``fill_`` of the same outputs, the call through ``rbf_gram`` (``ms``)
+   beside the first kernel through an equivalent wrapper
+   (``old_call_ms``) in turns, with the host's issue time a call, the plain
    version, ``kernels.rbf`` (the RBF the port's models compute: an eager
    expression of a few calls; no single library call computes this
    function, so ``library_ms`` is null) and the bytes bound.  No path of
    the port launches this kernel, as none of the JAX package does: its
-   count in the kernels line is this phase's;
+   count in the kernels line is this phase's, every launch of the phase
+   (``gram.run`` counts each, the timed ones included);
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
@@ -760,10 +763,11 @@ def main():
             "library_ms": head[name]["library_ms"],
             # the first version's time, timed in turns with this one
             "old_ms": head[name].get("old_ms"),
-            # rbf_gram: its own time without the wrapper, and the
-            # wrapper's host share of ms
+            # rbf_gram: its own time without the wrapper, the host's issue
+            # time of a call, and the first kernel through its wrapper
             **{k: head[name][k] for k in ("ms_kernel", "host_ms",
-                                          "rbf_eager_ms") if k in head[name]},
+                                          "old_call_ms", "rbf_eager_ms")
+               if k in head[name]},
             # the kernel's times at its other timed shapes (select at the
             # hm6 p128 meta-fit's and the bench's N = 128, global at the
             # smem variant's shape)

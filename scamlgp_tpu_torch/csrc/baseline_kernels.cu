@@ -38,6 +38,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "gram_profile.h"
+
 namespace {
 
 constexpr int BS = 64;
@@ -728,49 +730,9 @@ int baseline_sweep_launch(bool pair, const void* a, void* inv, void* logdet,
 
 // GP_COPY (waits for asynchronous copies) stays 0: the first kernel loads
 // synchronously, in GP_STAGE
-enum GramPhase {
-  GP_STAGE, GP_NORMS, GP_CROSS, GP_STORE, GP_BARRIER, GP_COPY, GP_COUNT
-};
 #ifdef GRAM_PROFILE
 // the phase totals, the last slot the warps counted
 __device__ unsigned long long g_baseline_gram_cycles[GP_COUNT + 1];
-#define GPROF_DECL                  \
-  long long gp_last = clock64();    \
-  long long gp_acc[GP_COUNT] = {};
-#define GPROF_MARK(ph)                 \
-  do {                                 \
-    const long long now_ = clock64();  \
-    gp_acc[ph] += now_ - gp_last;      \
-    gp_last = now_;                    \
-  } while (0)
-// A barrier that ends phase ph, its wait counted in GP_BARRIER (the stamp
-// feeds the barrier's predicate, so that it is read before the wait)
-#define GPROF_SYNC(ph)                         \
-  do {                                         \
-    const long long at_ = clock64();           \
-    gp_acc[ph] += at_ - gp_last;               \
-    __syncthreads_or(at_ == 0);                \
-    gp_last = clock64();                       \
-    gp_acc[GP_BARRIER] += gp_last - at_;       \
-  } while (0)
-#define GPROF_FLUSH()                                                   \
-  do {                                                                  \
-    if ((threadIdx.x & 31) == 0) {                                      \
-      for (int p_ = 0; p_ < GP_COUNT; ++p_)                             \
-        atomicAdd(&g_baseline_gram_cycles[p_],                          \
-                  static_cast<unsigned long long>(gp_acc[p_]));         \
-      atomicAdd(&g_baseline_gram_cycles[GP_COUNT], 1ull);               \
-    }                                                                   \
-  } while (0)
-#else
-#define GPROF_DECL
-#define GPROF_MARK(ph) \
-  do {                 \
-  } while (0)
-#define GPROF_SYNC(ph) __syncthreads()
-#define GPROF_FLUSH() \
-  do {                \
-  } while (0)
 #endif
 
 constexpr int kGramTile = 64;   // output tile edge
@@ -873,7 +835,7 @@ __global__ void baseline_gram_kernel(const T* __restrict__ x,
     }
   }
   GPROF_MARK(GP_STORE);
-  GPROF_FLUSH();
+  GPROF_FLUSH(g_baseline_gram_cycles);
 }
 
 template <typename T>

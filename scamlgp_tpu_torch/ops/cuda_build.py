@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` of ``SOURCES`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/<name>-<hash>.so`` at the root of the checkout (a
 directory git ignores), then loaded with ``ctypes``.  The hash covers the
-source and the flags, so an edited source is rebuilt.  Nothing is built or
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt.  Nothing is built or
 loaded when this module is imported: ``load`` builds at first use, and
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
 
@@ -61,6 +62,7 @@ def _flags(name: str, extra: tuple = ()) -> tuple:
 
 def library_path(name: str, extra: tuple = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.h")))
     digest = hashlib.sha256(
         src + " ".join(_flags(name, extra)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"

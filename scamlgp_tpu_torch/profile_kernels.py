@@ -4,6 +4,7 @@
     python -m scamlgp_tpu_torch.profile_kernels phases [--batch B] [--n N]
         [--d D] [--variant smem|global|pair|blocked|gram] [--baseline]
     python -m scamlgp_tpu_torch.profile_kernels times
+    python -m scamlgp_tpu_torch.profile_kernels gram
 
 - ``ptxas``: builds every kernel source with ``-Xptxas -v`` and prints each
   kernel's registers, shared memory and spill lines.
@@ -30,9 +31,10 @@
   = ``--n``, d = ``--d``): the RBF Gram kernel built with
   ``-DGRAM_PROFILE``, every warp stamping ``clock64()`` at the end of each
   phase (staging, norms, cross term, exp and store, the waits at its
-  barriers, and the current kernel's waits for its own asynchronous
-  copies; it sums the norms while it stages, so its ``norms`` is 0);
-  ``--baseline``: the first Gram kernel.
+  barriers and for asynchronous copies; the current kernel's store pass
+  stamps its cross term, its loads of the norms and its exp and store,
+  its scaling pass being a kernel of its own); ``--baseline``: the first
+  Gram kernel.
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
   the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
@@ -40,11 +42,13 @@
   timed in turns (old, new, new, old), with ``select``, ``smem`` and the
   library call at the same shapes; whether ``select``, ``fused`` and
   ``pair`` in float32 equal their plain versions bit for bit; and the RBF
-  Gram kernel at ``GRAM_TIMED`` in float32 and at (4096, 4096, 2) in
-  float64 (``gram_times``): the kernel alone beside its first version in
-  turns, its outputs rotated over ``GRAM_OUTS`` buffers, a ``fill_`` of
-  the same outputs, the profiler's device time of the same launches, and
-  the time through ``rbf_gram``.
+  Gram kernel's rows of ``gram``.
+- ``gram``: the RBF Gram kernel at ``GRAM_TIMED`` in float32 and at
+  (4096, 4096, 2) in float64 (``gram_times`` with ``full``): the kernel
+  alone beside its first version in turns, its outputs rotated over
+  ``GRAM_OUTS`` buffers, and with one output; a ``fill_`` of the same
+  outputs; the profiler's device time of each kernel; the time through
+  ``rbf_gram`` beside the first kernel through an equivalent wrapper.
 
 ``time_ms``, ``library_inverse``, ``bound`` and ``gram_times`` are also
 ``chip_smoke.py``'s.
@@ -108,7 +112,7 @@ def baseline_lib(extra: tuple = ()):
         fn.restype = ctypes.c_int
     for name in ("baseline_rbf_gram_f32", "baseline_rbf_gram_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = gram._C_ARGS
+        fn.argtypes = [_P] * 5 + [ctypes.c_int] * 3 + [_P]
         fn.restype = ctypes.c_int
     lib.baseline_error_string.argtypes = [ctypes.c_int]
     lib.baseline_error_string.restype = ctypes.c_char_p
@@ -292,21 +296,62 @@ def gram_bound(n, m, d, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def gram_times(n, m, d, dtype=torch.float32, reps=100):
+class _BaselineGram(gram.RbfGram):
+    """``rbf_gram``'s path with the first Gram kernel behind it, as its
+    first wrapper ran it: the autograd ``Function``, the checks and casts,
+    the output's allocation, the device context and one ``ctypes`` call."""
+
+    @staticmethod
+    def forward(ctx, x, z, lengthscale, outputscale):
+        ctx.save_for_backward(x, z, lengthscale, outputscale)
+        x, z, ls, os_ = gram.prepare(x, z, lengthscale, outputscale)
+        out = torch.empty((x.shape[0], z.shape[0]), dtype=x.dtype,
+                          device=x.device)
+        with torch.cuda.device(x.device):
+            return baseline_gram(x, z, ls, os_, out)
+
+
+def baseline_call(x, z, lengthscale, outputscale):
+    """The first Gram kernel through a wrapper equivalent to its own."""
+    return _BaselineGram.apply(x, z, gram._as_tensor(lengthscale, x),
+                               gram._as_tensor(outputscale, x))
+
+
+def call_ms(fn, reps):
+    """``time_ms`` of ``fn``, and the host's ms a call to issue it (the
+    wall time of the issuing loop, before the device is waited for)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_s * 1e3 / reps
+
+
+def gram_times(n, m, d, dtype=torch.float32, reps=100, full=False):
     """The RBF Gram kernel at (n, m, d): its own time (``ms_kernel``:
     bare launches through ``gram.run`` on operands prepared once, each
     into the next of ``GRAM_OUTS`` outputs, ``device_ms``) beside the
-    first version's (``old_ms``), timed in turns (old, new, new, old); the
-    same with one output (``ms_kernel_one_out``, ``old_ms_one_out``), which
-    the L2 may hold; ``fill_ms``, a store-only yardstick: ``Tensor.fill_``
-    of the same outputs in the same turns, what the card's store stream
-    gives at this size; the profiler's device time of the same launches;
-    the time through ``rbf_gram`` (``ms``: the wrapper's casts, checks and
-    allocation included, as a caller sees it) and its host share
-    (``host_ms`` = ms - ms_kernel); the plain version, ``kernels.rbf`` (the
-    RBF the port's models compute: an eager expression of several calls;
-    no single PyTorch call computes this function, so ``library_ms`` is
-    None) and the bound."""
+    first version's (``old_ms``), timed in turns (old, new, new, old);
+    ``fill_ms``, a store-only yardstick: ``Tensor.fill_`` of the same
+    outputs in the same turns, what the card's store stream gives at this
+    size; the time through ``rbf_gram`` (``ms``, as a caller sees it)
+    beside the first kernel through an equivalent wrapper
+    (``old_call_ms``, ``baseline_call``), in turns, with the host's issue
+    time of each call (``host_ms``, ``old_host_ms``); the plain version,
+    ``kernels.rbf`` (the RBF the port's models compute: an eager
+    expression of several calls; no single PyTorch call computes this
+    function, so ``library_ms`` is None) and the bound.  ``full`` adds the
+    same turns with one output (``ms_kernel_one_out``, ``old_ms_one_out``),
+    which the L2 may hold, and the profiler's device time of each kernel
+    (the scaling pass's apart)."""
     x, z, ls, os_ = gram_operands(n, m, d, dtype)
     ops = gram.prepare(x, z, ls, os_)
     outs = [torch.empty((n, m), dtype=dtype, device="cuda")
@@ -330,8 +375,6 @@ def gram_times(n, m, d, dtype=torch.float32, reps=100):
 
     t = [device_ms(f, reps) for f in (old, new, fill, fill, new, old)]
     t = t[:2] + t[4:] + t[2:4]  # (old, new, new, old), then the fills
-    one = [device_ms(lambda i, f=f: f(i, outs[:1]), reps)
-           for f in (old, new, new, old)]
     bound_ms, bound_by = gram_bound(n, m, d, dtype)
     row = dict(
         n=n, m=m, d=d, dtype=str(dtype).replace("torch.", ""),
@@ -341,14 +384,26 @@ def gram_times(n, m, d, dtype=torch.float32, reps=100):
         max_abs_err=err, old_max_abs_err=old_err,
         ms_kernel=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2,
         fill_ms=(t[4] + t[5]) / 2, turns_ms=t,
-        ms_kernel_one_out=(one[1] + one[2]) / 2,
-        old_ms_one_out=(one[0] + one[3]) / 2,
-        profiler_ms=profiled_ms(new, reps, "rbf_gram_kernel"),
-        old_profiler_ms=profiled_ms(old, reps, "baseline_gram_kernel"),
         outs=len(outs), out_bytes=outs[0].numel() * outs[0].element_size())
+    if full:
+        one = [device_ms(lambda i, f=f: f(i, outs[:1]), reps)
+               for f in (old, new, new, old)]
+        row.update(
+            ms_kernel_one_out=(one[1] + one[2]) / 2,
+            old_ms_one_out=(one[0] + one[3]) / 2,
+            profiler_ms=profiled_ms(new, reps, "rbf_gram_kernel"),
+            profiler_scale_ms=profiled_ms(new, reps, "rbf_gram_scale"),
+            old_profiler_ms=profiled_ms(old, reps, "baseline_gram_kernel"))
     del outs
-    row["ms"] = time_ms(lambda: gram.rbf_gram(x, z, ls, os_), 50)
-    row["host_ms"] = row["ms"] - row["ms_kernel"]
+    new_call = lambda: gram.rbf_gram(x, z, ls, os_)  # noqa: E731
+    old_call = lambda: baseline_call(x, z, ls, os_)  # noqa: E731
+    calls = [call_ms(f, 50) for f in (old_call, new_call, new_call,
+                                      old_call)]
+    row.update(ms=(calls[1][0] + calls[2][0]) / 2,
+               old_call_ms=(calls[0][0] + calls[3][0]) / 2,
+               host_ms=(calls[1][1] + calls[2][1]) / 2,
+               old_host_ms=(calls[0][1] + calls[3][1]) / 2,
+               call_turns_ms=[c[0] for c in calls])
     row["write_tb_per_s"] = row["out_bytes"] / row["ms_kernel"] / 1e9
     row.update(plain_ms=time_ms(lambda: gram.rbf_gram_plain(x, z, ls, os_),
                                 20),
@@ -390,10 +445,10 @@ def cmd_ptxas():
 
 def cmd_gram_phases(n: int, d: int, baseline: bool = False):
     """One Gram launch's phase profile at (n, n, d) float32: mean cycles a
-    warp in each of ``GRAM_PHASES`` (the current kernel sums the norms
-    while it stages, so its ``norms`` is 0; the first one loads
-    synchronously, so its ``copy_wait`` is 0), with the kernel's own time
-    in the default and the profiling build."""
+    warp in each of ``GRAM_PHASES`` (the current kernel's store pass
+    stamps ``cross``, ``norms`` and ``exp_store``, its scaling pass none;
+    the first one loads synchronously, so its ``copy_wait`` is 0), with
+    the kernel's own time in the default and the profiling build."""
     x, z, ls, os_ = gram.prepare(*gram_operands(n, n, d, torch.float32))
     out, ref = (torch.empty((n, n), device="cuda") for _ in range(2))
     if baseline:
@@ -586,14 +641,21 @@ def cmd_times():
         torch.cuda.empty_cache()
     for row in rows:
         _emit(probe="times", dtype="float32", **row)
+    cmd_gram()
+
+
+def cmd_gram():
+    """``gram_times`` (``full``) at ``GRAM_TIMED`` in float32 and at
+    (4096, 4096, 2) in float64."""
     for shape, dtype in ([(s, torch.float32) for s in GRAM_TIMED]
                          + [((4096, 4096, 2), torch.float64)]):
-        _emit(probe="times", kernel="rbf_gram", **gram_times(*shape, dtype))
+        _emit(probe="times", kernel="rbf_gram",
+              **gram_times(*shape, dtype, full=True))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("ptxas", "phases", "times"))
+    ap.add_argument("probe", choices=("ptxas", "phases", "times", "gram"))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--n", type=int, default=None,
                     help="default 256; 128 for pair and blocked; 4096 "
@@ -620,6 +682,8 @@ def main(argv=None):
     elif args.probe == "phases":
         n = args.n or (128 if args.variant in SWEEP_PHASES else 256)
         cmd_phases(args.batch, n, args.variant, args.baseline)
+    elif args.probe == "gram":
+        cmd_gram()
     else:
         cmd_times()
     return 0

@@ -499,7 +499,7 @@ def _gram_inputs(n, m, d, dtype, device):
 def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
     """The RBF Gram kernel against its plain version on the card, atol 2e-5
     (the JAX package's tolerance for this kernel).  The shapes reach every
-    branch: d = 33 and 40 take three and two feature chunks; rows that do
+    branch: d from 1 to 40 features in the scratch; rows that do
     not start on 16 bytes (m % 4 != 0 in float32: 1, 513, 70, 131, 5; m
     odd in float64) take the element-wise stores, the others 16-byte runs
     with element-wise stores at the ragged tile edge; (3, 5, 1) is under
@@ -589,13 +589,17 @@ def test_gram_kernel_gradient_on_the_card(cuda):
 
 
 def test_gram_counts_launches_only(cuda):
-    """One launch a non-empty call; an empty output launches nothing."""
+    """One launch a non-empty call, also a bare one through ``gram.run``;
+    an empty output launches nothing."""
     x = torch.rand((64, 2), device=cuda)
     before = gram.rbf_gram.launches
     gram.rbf_gram(x, x, 0.5, 1.0)
     assert gram.rbf_gram.launches == before + 1
     assert gram.rbf_gram(x[:0], x, 0.5, 1.0).shape == (0, 64)
     assert gram.rbf_gram.launches == before + 1
+    gram.run(*gram.prepare(x, x, 0.5, 1.0), torch.empty((64, 64),
+                                                        device=cuda))
+    assert gram.rbf_gram.launches == before + 2
 
 
 def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda):
