@@ -19,11 +19,9 @@ tangent of ``K.rbf`` and not of the kernel.  The reference pads rows to its
 256-row tiles and features to the MXU's lanes, then slices; the card needs
 neither.
 
-The kernel is two launches: a pass that scales x and z once into a
-float32 scratch (``torch.empty``, padded to whole tiles), then persistent
-CTAs, about four an SM, that each walk a run of 32 x 128 output tiles,
-storing 16-byte runs where the rows allow it (``launch_geometry`` mirrors
-the launch rule).  A call counts one launch.
+The kernel is persistent: about four CTAs an SM each walk a run of 32 x 128
+output tiles, storing 16-byte runs where the rows allow it
+(``launch_geometry`` mirrors its launch rule).
 
 The JAX package calls none of this outside its tests, and neither does the
 port.
@@ -65,17 +63,10 @@ def rbf_gram_plain(x, z, lengthscale, outputscale=1.0) -> torch.Tensor:
 
 
 # csrc/gram.cu's launch rule: a tile of ROWS x COLS outputs, THREADS a CTA,
-# at most CTAS_PER_SM CTAs an SM
-ROWS, COLS, THREADS, CTAS_PER_SM = 32, 128, 256, 4
+# at most CTAS_PER_SM CTAs an SM, features staged CHUNK at a time
+ROWS, COLS, THREADS, CTAS_PER_SM, CHUNK = 32, 128, 256, 4, 12
 #: the SMs of an H100 SXM, launch_geometry's default
 H100_SMS = 132
-
-
-def scratch_floats(n: int, m: int, d: int) -> int:
-    """The float32 scratch of the scaling pass: d + 1 rows (the scaled
-    features, then the squared norm times -1/2) of n and of m columns,
-    each padded to whole tiles."""
-    return (d + 1) * (-(-n // ROWS) * ROWS + -(-m // COLS) * COLS)
 
 
 def launch_geometry(n: int, m: int, d: int,
@@ -85,11 +76,15 @@ def launch_geometry(n: int, m: int, d: int,
     SMs: the (n, m) output in ``tiles`` tiles of ``tile`` = (32, 128), at
     most ``ctas_per_sm`` x sms CTAs of ``threads`` threads, each taking
     ``tiles_per_cta`` consecutive tiles (row-major); ``grid`` is the fewest
-    CTAs that cover the tiles at that count.  ``vector_stores``: the rows
-    start on 16 bytes (m a multiple of 4 floats or 2 doubles), so full runs
-    of 16 bytes are stored at once (the kernel also needs a 16-byte aligned
-    output, which ``torch.empty`` gives).  ``scratch_bytes``: the scaling
-    pass's float32 scratch (``scratch_floats``); ``shared_bytes``: none."""
+    CTAs that cover the tiles at that count.  Features are staged ``chunk``
+    at a time in ``chunks`` passes.  ``vector_stores``: the rows start on
+    16 bytes (m a multiple of 4 floats or 2 doubles), so full runs of 16
+    bytes are stored at once (the kernel also needs a 16-byte aligned
+    output, which ``torch.empty`` gives).  ``shared_bytes``: the dynamic
+    shared memory of a CTA, two buffers of each part (the scaled float32
+    chunk of the tile's z and x rows, their squared norms, and their raw
+    rows in the input's type, padded to an odd stride);
+    ``scratch_bytes``: device memory besides the output, none."""
     if n < 1 or m < 1 or d < 0:
         raise ValueError(f"the Gram kernel takes n, m >= 1 and d >= 0, got "
                          f"({n}, {m}, {d})")
@@ -97,16 +92,22 @@ def launch_geometry(n: int, m: int, d: int,
         raise TypeError(f"the Gram kernel takes float32 or float64, not "
                         f"{dtype}")
     elem = torch.finfo(dtype).bits // 8
-    tiles = -(-n // ROWS) * -(-m // COLS)
+    tiles_n = -(-m // COLS)
+    tiles = -(-n // ROWS) * tiles_n
     per = -(-tiles // (sms * CTAS_PER_SM))
+    kc = min(d, CHUNK)
+    stride = kc | 1
+    shared = 2 * (4 * (kc + 1) * (COLS + ROWS)
+                  + elem * (COLS + ROWS) * stride)
     return {"threads": THREADS, "tile": (ROWS, COLS),
             "ctas_per_sm": CTAS_PER_SM, "tiles": tiles,
-            "tiles_per_cta": per, "grid": -(-tiles // per),
-            "vector_stores": m % (16 // elem) == 0, "shared_bytes": 0,
-            "scratch_bytes": 4 * scratch_floats(n, m, d)}
+            "tiles_per_cta": per, "grid": -(-tiles // per), "chunk": CHUNK,
+            "chunks": max(1, -(-d // CHUNK)),
+            "vector_stores": m % (16 // elem) == 0,
+            "shared_bytes": shared, "scratch_bytes": 0}
 
 
-_C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+_C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,12 +133,12 @@ def kernel_geometry(n: int, m: int, d: int,
     SMs (``rbf_gram_geometry``), in ``launch_geometry``'s keys; the card
     tests hold the two equal."""
     fn = cuda_build.load("gram").rbf_gram_geometry
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = None
     out = (ctypes.c_longlong * 4)()
-    fn(n, m, d, sms, ctypes.addressof(out))
-    return {"grid": out[0], "tiles_per_cta": out[1], "tiles": out[2],
-            "scratch_bytes": 4 * out[3]}
+    fn(n, m, d, torch.finfo(dtype).bits // 8, sms, ctypes.addressof(out))
+    return {"grid": out[0], "tiles_per_cta": out[1], "chunks": out[2],
+            "shared_bytes": out[3]}
 
 
 def prepare(x, z, lengthscale, outputscale):
@@ -164,12 +165,9 @@ def run(x, z, ls, os_, out, extra: tuple = ()) -> torch.Tensor:
     ``prepare``'s operands into ``out`` (n, m), counted in
     ``rbf_gram.launches``."""
     fn, err_string = _kernel_fn(x.dtype, extra)
-    n, m, d = out.shape[0], out.shape[1], x.shape[1]
-    scratch = torch.empty(scratch_floats(n, m, d), dtype=torch.float32,
-                          device=x.device)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), z.data_ptr(), ls.data_ptr(), os_.data_ptr(),
-                 out.data_ptr(), n, m, d, scratch.data_ptr(),
+                 out.data_ptr(), out.shape[0], out.shape[1], x.shape[1],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("rbf_gram kernel launch failed: "

@@ -31,10 +31,9 @@
   = ``--n``, d = ``--d``): the RBF Gram kernel built with
   ``-DGRAM_PROFILE``, every warp stamping ``clock64()`` at the end of each
   phase (staging, norms, cross term, exp and store, the waits at its
-  barriers and for asynchronous copies; the current kernel's store pass
-  stamps its cross term, its loads of the norms and its exp and store,
-  its scaling pass being a kernel of its own); ``--baseline``: the first
-  Gram kernel.
+  barriers, and the current kernel's waits for its own asynchronous
+  copies; it sums the norms while it stages, so its ``norms`` is 0);
+  ``--baseline``: the first Gram kernel.
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
   the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
@@ -350,8 +349,8 @@ def gram_times(n, m, d, dtype=torch.float32, reps=100, full=False):
     expression of several calls; no single PyTorch call computes this
     function, so ``library_ms`` is None) and the bound.  ``full`` adds the
     same turns with one output (``ms_kernel_one_out``, ``old_ms_one_out``),
-    which the L2 may hold, and the profiler's device time of each kernel
-    (the scaling pass's apart)."""
+    which the L2 may hold, and the profiler's device time of each
+    kernel."""
     x, z, ls, os_ = gram_operands(n, m, d, dtype)
     ops = gram.prepare(x, z, ls, os_)
     outs = [torch.empty((n, m), dtype=dtype, device="cuda")
@@ -392,7 +391,6 @@ def gram_times(n, m, d, dtype=torch.float32, reps=100, full=False):
             ms_kernel_one_out=(one[1] + one[2]) / 2,
             old_ms_one_out=(one[0] + one[3]) / 2,
             profiler_ms=profiled_ms(new, reps, "rbf_gram_kernel"),
-            profiler_scale_ms=profiled_ms(new, reps, "rbf_gram_scale"),
             old_profiler_ms=profiled_ms(old, reps, "baseline_gram_kernel"))
     del outs
     new_call = lambda: gram.rbf_gram(x, z, ls, os_)  # noqa: E731
@@ -445,10 +443,10 @@ def cmd_ptxas():
 
 def cmd_gram_phases(n: int, d: int, baseline: bool = False):
     """One Gram launch's phase profile at (n, n, d) float32: mean cycles a
-    warp in each of ``GRAM_PHASES`` (the current kernel's store pass
-    stamps ``cross``, ``norms`` and ``exp_store``, its scaling pass none;
-    the first one loads synchronously, so its ``copy_wait`` is 0), with
-    the kernel's own time in the default and the profiling build."""
+    warp in each of ``GRAM_PHASES`` (the current kernel sums the norms
+    while it stages, so its ``norms`` is 0; the first one loads
+    synchronously, so its ``copy_wait`` is 0), with the kernel's own time
+    in the default and the profiling build."""
     x, z, ls, os_ = gram.prepare(*gram_operands(n, n, d, torch.float32))
     out, ref = (torch.empty((n, n), device="cuda") for _ in range(2))
     if baseline:

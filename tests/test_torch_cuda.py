@@ -499,7 +499,7 @@ def _gram_inputs(n, m, d, dtype, device):
 def test_gram_kernel_matches_plain(cuda, n, m, d, dtype):
     """The RBF Gram kernel against its plain version on the card, atol 2e-5
     (the JAX package's tolerance for this kernel).  The shapes reach every
-    branch: d from 1 to 40 features in the scratch; rows that do
+    branch: d = 33 and 40 take three and two feature chunks; rows that do
     not start on 16 bytes (m % 4 != 0 in float32: 1, 513, 70, 131, 5; m
     odd in float64) take the element-wise stores, the others 16-byte runs
     with element-wise stores at the ragged tile edge; (3, 5, 1) is under

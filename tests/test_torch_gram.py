@@ -13,8 +13,7 @@ kernel runs in interpret mode off the TPU.
   nothing and leaves it as it was.
 - ``launch_geometry``, the kernel's launch rule in Python: every tile
   taken once by a CTA, at most four CTAs an SM, the 16-byte store path
-  only where rows start on 16 bytes, the scaling pass's scratch padded to
-  whole tiles.
+  only where rows start on 16 bytes, shared memory within four CTAs an SM.
 
 The kernel itself runs on the card only (``tests/test_torch_cuda.py``).
 """
@@ -107,34 +106,33 @@ def test_wrapper_rejects_a_device_it_does_not_run_on():
 
 
 @pytest.mark.parametrize("n,m,d,dtype,sms,want", [
-    # (grid, tiles_per_cta, vector_stores, scratch_bytes)
-    (4096, 4096, 2, torch.float32, 132, (512, 8, True, 98304)),
-    (2048, 2048, 6, torch.float32, 132, (512, 2, True, 114688)),
-    (4096, 4096, 2, torch.float64, 132, (512, 8, True, 98304)),
-    (129, 131, 33, torch.float32, 132, (10, 1, False, 56576)),
-    (129, 130, 33, torch.float64, 132, (10, 1, True, 56576)),
-    (3, 5, 1, torch.float32, 132, (1, 1, False, 1280)),
-    (257, 513, 6, torch.float64, 1, (4, 12, False, 25984)),
-    (64, 128, 0, torch.float32, 2, (2, 1, True, 768)),
+    # (grid, tiles_per_cta, chunks, vector_stores)
+    (4096, 4096, 2, torch.float32, 132, (512, 8, 1, True)),
+    (2048, 2048, 6, torch.float32, 132, (512, 2, 1, True)),
+    (4096, 4096, 2, torch.float64, 132, (512, 8, 1, True)),
+    (129, 131, 33, torch.float32, 132, (10, 1, 3, False)),
+    (129, 130, 33, torch.float64, 132, (10, 1, 3, True)),
+    (3, 5, 1, torch.float32, 132, (1, 1, 1, False)),
+    (257, 513, 6, torch.float64, 1, (4, 12, 1, False)),
+    (64, 128, 0, torch.float32, 2, (2, 1, 1, True)),
 ])
 def test_launch_geometry(n, m, d, dtype, sms, want):
-    """The kernel's launch rule (``csrc/gram.cu::geometry``; the card
-    tests hold the built kernel to it)."""
+    """The kernel's launch rule (``csrc/gram.cu::geometry`` and ``layout``;
+    the card tests hold the built kernel to it)."""
     g = gram.launch_geometry(n, m, d, dtype, sms)
-    assert (g["grid"], g["tiles_per_cta"], g["vector_stores"],
-            g["scratch_bytes"]) == want
+    assert (g["grid"], g["tiles_per_cta"], g["chunks"],
+            g["vector_stores"]) == want
     rows, cols = g["tile"]
     assert g["tiles"] == -(-n // rows) * -(-m // cols)
     # every tile taken by exactly one CTA, and no CTA without one
     assert (g["grid"] - 1) * g["tiles_per_cta"] < g["tiles"] <= \
         g["grid"] * g["tiles_per_cta"]
     assert g["grid"] <= g["ctas_per_sm"] * sms
-    assert g["threads"] == 256 and g["shared_bytes"] == 0
-    # the scaling pass's scratch: d + 1 float32 rows of x's and z's rows,
-    # each padded to whole tiles
-    assert g["scratch_bytes"] == 4 * (d + 1) * (
-        -(-n // rows) * rows + -(-m // cols) * cols)
-    assert g["scratch_bytes"] == 4 * gram.scratch_floats(n, m, d)
+    assert g["threads"] == 256 and g["scratch_bytes"] == 0
+    # four CTAs an SM fit the H100's 228 KiB of shared memory, 1 KiB of it
+    # reserved a CTA
+    assert g["ctas_per_sm"] * (g["shared_bytes"] + 1024) <= 228 * 1024
+    assert g["chunks"] * g["chunk"] >= d
 
 
 def test_launch_geometry_refuses_what_the_kernel_does_not_take():
