@@ -65,7 +65,22 @@ Phases, each printing one JSON line with its own seconds:
    than twice its plain version fails.  So the ``pair`` and ``blocked``
    kernels, though no slice's route takes them, are held to twice their
    plain versions' distance from float64 on the p32 and hm6 p128 slices'
-   own float32 systems (``rounding``);
+   own float32 systems (``rounding``).  The p256 slice's ``chol64`` entry
+   holds ``gp.mll(method="chol64")`` on the slice's float32 inputs and
+   warm-start parameters to ``gp.mll(method="chol")`` on the same inputs
+   and parameters cast to float64 (rtol 1e-6: the float32 cast of the
+   result alone), and prints how far the kernel route and the float32
+   systems promoted to float64 lie from that float64-assembled MLL;
+4b. campaign_resume: the many-task configuration (BASELINE.json config 4):
+   Quadratic, 128 meta-tasks x 32 points, d=1, noise 0.05, study seeds
+   0-3, float32, ``mll_method="sweep"`` (``select``), E=4, three ways:
+   (a) uninterrupted; (b) checkpointed with ``stop_after=2``, then resumed
+   to E from the checkpoint; (c) ``study_chunk=2``, checkpointed.  (b) must
+   equal (a) bit for bit; (c) must too, or, where the card's
+   batch-size-dependent library operations move a last bit
+   (``CHUNK_TOL``), match (a) in each study's noise draws and first
+   proposals.  One line per run with its
+   seconds, meta-fit seconds and ``sweep_inverse`` launches;
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -92,15 +107,21 @@ device it exits 2 at once.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from scamlgp_tpu_torch import bench_sweep_n, convert
-from scamlgp_tpu_torch.benchmarking.benchmarks import Branin, Hartmann6D
+from scamlgp_tpu_torch.benchmarking.benchmarks import (
+    Branin,
+    Hartmann6D,
+    Quadratic,
+)
 from scamlgp_tpu_torch.benchmarking.local_runner import run_study
 from scamlgp_tpu_torch.benchmarking.noise import HomoscedasticGaussianNoise
 from scamlgp_tpu_torch.bo import ScaMLGPBO
@@ -138,14 +159,15 @@ from scamlgp_tpu_torch.validate import study_regret
 # width, M=8 tasks x N_m points, d, the noise and the CampaignConfig
 # defaults, is not cut).
 SLICES = {
-    "branin_t8_p32": dict(benchmark=Branin, studies=32, evals=6, tasks=8,
+    "branin_t8_p32": dict(benchmark=Branin, studies=32, evals=4, tasks=8,
                           points=32, sigma=1.0, route_blocked=False,
                           sweep_variant="select", optimum="shgo",
                           kernels=("sweep_inverse",)),
     "branin_t8_p256": dict(benchmark=Branin, studies=32, evals=3, tasks=8,
                            points=256, sigma=1.0, route_blocked=True,
                            sweep_variant="select", optimum="shgo",
-                           kernels=("blocked_chol_inverse_smem",)),
+                           kernels=("blocked_chol_inverse_smem",),
+                           chol64=True),
     "hartmann6_t8_p512": dict(benchmark=Hartmann6D, studies=8, evals=2,
                               tasks=8, points=512, sigma=0.1,
                               route_blocked=True, sweep_variant="select",
@@ -171,7 +193,28 @@ GRAM_TIMED = ((2048, 2048, 6), (4096, 4096, 2))
 #: the driver phase: BRANIN_T8_P32_N1_SCAMLGP cut to these studies x
 #: evaluations (its width, 8 tasks x 32 points and the driver's defaults,
 #: is not cut)
-DRIVER_SEEDS, DRIVER_EVALS = (0, 1), 10
+DRIVER_SEEDS, DRIVER_EVALS = (0, 1), 6
+#: the campaign_resume phase: BASELINE.json config 4 (M=128 x N_m=32,
+#: sigma 0.05, study seeds 0-3) cut to RESUME_EVALS evaluations, stopped
+#: after RESUME_STOP, chunked by RESUME_CHUNK studies
+RESUME_TASKS, RESUME_POINTS, RESUME_SIGMA = 128, 32, 0.05
+RESUME_SEEDS, RESUME_EVALS, RESUME_STOP, RESUME_CHUNK = range(4), 4, 2, 2
+#: where the phase's checkpoints go (removed at its end)
+RESUME_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoints"
+#: chol64 against the MLL computed wholly in float64: the cast alone
+TOL_CHOL64 = 1e-6
+#: the chunked run against the uninterrupted one where it is not bit for
+#: bit.  On the card two library operations give a study's rows other last
+#: bits in a batch of 2 studies than in one of 4 (``batch_probe``): the
+#: row sums of ``output_normalizer``'s standardization (a (S, M*N + E) sum
+#: whose reduction layout follows the number of rows) and cuBLAS's batched
+#: product vᵀv of ``source_predict``'s covariance ((S*M, E, N) x
+#: (S*M, N, E), whose kernel follows the batch count).  The 60-step L-BFGS
+#: target fits amplify such bits in later iterations, so what is held is
+#: each study's own noise draws (y - y_clean, to f32 rounding) and the
+#: first proposals (no target data yet, so neither operation reaches the
+#: first fit's objective), in the unit cube
+CHUNK_TOL = {"noise": 1e-5, "first_x": 5e-3}
 
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -517,6 +560,11 @@ def phase_slice(key):
         return ((v.double() - truth).abs()
                 / truth.abs().clamp_min(1.0)).max().item()
 
+    extra = {}
+    if "chol64" in sl:
+        extra["chol64"] = chol64_entry(key, scfg, flat_X, flat_y, flat_m,
+                                       kern, truth)
+
     per_iter = res.iteration_seconds
     emit("slice", time.perf_counter() - t0, slice=key,
          benchmark=sl["benchmark"].__name__, tasks=M, points=N, d=d,
@@ -536,7 +584,132 @@ def phase_slice(key):
          .max().item(),
          mll_kernel_vs_f64_max_rel=rel_to_truth(kern),
          mll_plain_vs_f64_max_rel=rel_to_truth(plain), stages=stages,
-         rounding=rounded)
+         rounding=rounded, **extra)
+    return launches
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def chol64_entry(key, scfg, X, y, mask, kern, truth):
+    """``gp.mll(method="chol64")`` on a slice's float32 inputs at the
+    warm start against ``gp.mll(method="chol")`` on the same inputs and
+    parameters cast to float64, which must agree to TOL_CHOL64 relative;
+    with the distances of the kernel route's MLL ``kern`` and of ``truth``
+    (the float32 systems promoted to float64) from that float64 MLL."""
+    d = X.shape[-1]
+    p32 = gp.init_params(scfg, d, X.dtype, X.device,
+                         batch_shape=X.shape[:1])
+    p64 = gp.GPParams(*[leaf.double() for leaf in p32])
+    t0 = time.perf_counter()
+    v64 = gp.mll(scfg, p32, X, y, mask, method="chol64")
+    sync(X.device)
+    chol64_s = time.perf_counter() - t0
+    ref = gp.mll(scfg, p64, X.double(), y.double(), mask.double(),
+                 method="chol")
+
+    def rel(v):
+        r = (v.double() - ref).abs() / ref.abs().clamp_min(1.0)
+        return [r.max().item(), r.median().item()]
+
+    out = {"chol64_vs_f64": rel(v64), "chol64_dtype": str(v64.dtype),
+           "chol64_s": chol64_s, "kernel_vs_f64_assembled": rel(kern),
+           "f32_systems_in_f64_vs_f64_assembled": rel(truth)}
+    check(v64.dtype == torch.float32 and bool(torch.isfinite(v64).all()),
+          f"{key}: chol64 MLL {v64.dtype}, finite "
+          f"{bool(torch.isfinite(v64).all())}")
+    check(out["chol64_vs_f64"][0] <= TOL_CHOL64,
+          f"{key}: chol64 is {out['chol64_vs_f64'][0]} from the MLL "
+          "computed in float64")
+    return out
+
+
+def phase_campaign_resume(device="cuda"):
+    """The many-task campaign uninterrupted, stopped and resumed, and in
+    study chunks; returns the phase's launches of every kernel."""
+    t0 = time.perf_counter()
+    fn, tp, md, optima = campaign_inputs_from_benchmark(
+        Quadratic, [RESUME_POINTS] * RESUME_TASKS, RESUME_SEEDS,
+        noise_std=RESUME_SIGMA, dtype=torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    cfg = CampaignConfig(n_evaluations=RESUME_EVALS, noise_std=RESUME_SIGMA,
+                         mll_method="sweep")
+    kw = dict(seed=0, cfg=cfg, meta_fit_restarts=META_RESTARTS,
+              meta_fit_steps=META_STEPS, device=device)
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    runs = [("uninterrupted", {}),
+            ("stopped", dict(checkpoint_path=RESUME_DIR / "b",
+                             stop_after=RESUME_STOP)),
+            ("resumed", dict(checkpoint_path=RESUME_DIR / "b")),
+            ("chunked", dict(checkpoint_path=RESUME_DIR / "c",
+                             study_chunk=RESUME_CHUNK))]
+    reset_launches()
+    out, lines = {}, []
+    for name, extra in runs:
+        tr = time.perf_counter()
+        res = run_campaign(fn, tp, md, **kw, **extra)
+        sync(device)
+        out[name] = res
+        n = res.launches["sweep_inverse"]
+        lines.append({"run": name, "seconds": time.perf_counter() - tr,
+                      "meta_fit_s": res.meta_fit_seconds,
+                      "iteration_s": res.iteration_seconds,
+                      "completed": int(res.mask.sum(-1).min()),
+                      "sweep_inverse_launches": sum(n),
+                      "sweep_inverse_meta_fit": n[0],
+                      "sweep_inverse_per_iteration": n[1:]})
+        check(n[0] > 0 and sum(n[1:]) > 0,
+              f"campaign_resume {name}: sweep_inverse launches {n}")
+    launches = launches_now()
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    check(lines[1]["completed"] == RESUME_STOP,
+          f"campaign_resume: the stopped run completed "
+          f"{lines[1]['completed']} iterations")
+    a = out["uninterrupted"]
+    check(a.X.shape == (len(RESUME_SEEDS), RESUME_EVALS, 1)
+          and bool(torch.isfinite(a.X).all())
+          and bool(((a.X >= 0) & (a.X <= 1)).all())
+          and bool(torch.isfinite(a.y_clean).all()),
+          "campaign_resume: proposals or losses out of range")
+    equal = {}
+    for name in ("resumed", "chunked"):
+        b = out[name]
+        equal[name] = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+                       for f in ("X", "y", "y_clean")}
+        equal[name]["max_abs_diff_X"] = (a.X - b.X).abs().max().item()
+        equal[name]["max_abs_diff_X_per_iteration"] = (
+            (a.X - b.X).abs().amax(dim=(0, 2)).tolist())
+        equal[name]["max_abs_diff_noise"] = ((a.y - a.y_clean)
+                                             - (b.y - b.y_clean)).abs().max(
+                                             ).item()
+    same = {k: all(equal[k][f] for f in ("X", "y", "y_clean"))
+            for k in equal}
+    check(same["resumed"], "campaign_resume: the resumed run differs from "
+          f"the uninterrupted one: {equal['resumed']}")
+    # the chunked run: bit for bit, or, where a batch-size-dependent
+    # library operation moved a last bit (CHUNK_TOL), each study's own
+    # noise draws and first proposals, and valid proposals throughout
+    ec, c = equal["chunked"], out["chunked"]
+    check(same["chunked"] or (
+        ec["max_abs_diff_noise"] <= CHUNK_TOL["noise"]
+        and ec["max_abs_diff_X_per_iteration"][0] <= CHUNK_TOL["first_x"]
+        and bool(torch.isfinite(c.X).all())
+        and bool(((c.X >= 0) & (c.X <= 1)).all())),
+          f"campaign_resume: the chunked run differs from the "
+          f"uninterrupted one beyond {CHUNK_TOL}: {ec}")
+    regret = simple_regret(a.y_clean, optima)
+    emit("campaign_resume", time.perf_counter() - t0,
+         benchmark="Quadratic", tasks=RESUME_TASKS, points=RESUME_POINTS,
+         d=1, sigma=RESUME_SIGMA, studies=len(RESUME_SEEDS),
+         evaluations=RESUME_EVALS, stop_after=RESUME_STOP,
+         study_chunk=RESUME_CHUNK, setup_s=setup_s, runs=lines,
+         equal_to_uninterrupted=equal,
+         nonfinite_source_tasks=a.nonfinite_source_tasks,
+         median_regret=[float(v) for v in regret.median(dim=0).values],
+         launches=launches)
     return launches
 
 
@@ -734,6 +907,7 @@ def main():
     head["rbf_gram"], gram_launches = phase_gram()
     max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
     by_slice = {key: phase_slice(key) for key in SLICES}
+    by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["bench_sweep_n"] = phase_bench()
     by_slice["driver"] = phase_driver()
     # each kernel's launches in the slice (or the bench) whose main path

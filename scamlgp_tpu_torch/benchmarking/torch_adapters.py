@@ -22,6 +22,7 @@ from scamlgp_tpu_torch.benchmarking.functions.hartmann import (
     P6,
     hartmann_function,
 )
+from scamlgp_tpu_torch.benchmarking.functions.quadratic import quadratic
 from scamlgp_tpu_torch.bo.optimize import ascend, top_starts
 from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import scamlgp as m
@@ -50,10 +51,17 @@ def hartmann6_unit(x_unit, p):
     return hartmann_function(x_unit, _alpha(p), A6, P6)
 
 
+def quadratic_unit(x_unit, p):
+    """x_unit (..., 1) in [0,1] -> the quadratic over x in [-1, 1]."""
+    x = -1.0 + 2.0 * x_unit[..., 0]
+    return quadratic(x, p["a"], p["b"], p["c"])
+
+
 TORCH_FUNCTIONS = {
     "Branin": branin_unit,
     "Hartmann3D": hartmann3_unit,
     "Hartmann6D": hartmann6_unit,
+    "Quadratic": quadratic_unit,
 }
 
 
@@ -130,3 +138,49 @@ def campaign_inputs_from_benchmark(benchmark_cls, n_data_per_task,
     else:
         optima = torch.tensor(optima, dtype=dtype, device=device)
     return fn, task_params, meta_data, optima
+
+
+def campaign_to_study_results(benchmark_cls, n_data_per_task, study_seeds,
+                              result, optima, objective_name: str = "loss",
+                              noisy: bool = True, space=None):
+    """A ``CampaignResult`` as the study runner's per-study result dicts
+    (``local_runner.run_study``'s schema: ``optimum``, ``objectives``,
+    ``evaluations``, ``seed``), each proposal decoded into a configuration
+    by the search space's ``from_numerical``.
+
+    ``optima`` are the per-study optima that
+    ``campaign_inputs_from_benchmark`` returned: the target task is drawn
+    unseeded, so it cannot be rebuilt here.  The search space does not
+    depend on the task, so one instance decodes every study's proposals.
+    """
+    def host(a):
+        return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a))
+
+    X, y, y_clean = host(result.X), host(result.y), host(result.y_clean)
+    optima = host(optima)
+    if space is None:
+        space = benchmark_cls(n_data_per_task=list(n_data_per_task),
+                              seed=0).search_space
+    studies = []
+    for si, seed in enumerate(study_seeds):
+        evaluations = []
+        for e in range(X.shape[1]):
+            if noisy:
+                objectives = {
+                    f"{objective_name} (noisy)": float(y[si, e]),
+                    f"{objective_name} (noise free)": float(y_clean[si, e]),
+                }
+            else:
+                objectives = {objective_name: float(y_clean[si, e])}
+            evaluations.append({
+                "configuration": space.from_numerical(X[si, e]),
+                "objectives": objectives})
+        studies.append({
+            "optimum": float(optima[si]),
+            "objectives": [{"name": objective_name,
+                            "greater_is_better": False}],
+            "evaluations": evaluations,
+            "seed": int(seed),
+        })
+    return studies

@@ -146,10 +146,29 @@ def mll(cfg: GPConfig, p: GPParams, X, y, mask=None,
       blocked-Cholesky kernel for 192 <= N <= 1024; falls back to
       ``"chol"`` where no inverse route serves this N.  ``inverse_route``
       other than ``"auto"`` forces one forward route at every N
-      (``inverse_mll.ROUTES``), as the kernel N-scaling bench does.
+      (``inverse_mll.ROUTES``), as the kernel N-scaling bench does;
+    - ``"chol64"``: a float64 island for ill-conditioned float32 systems:
+      the parameters are constrained, the Gram assembled from the inputs
+      and the prior covariance added, all in float64, the system factored
+      in float64, and the MLL cast back to ``X.dtype``.  The island starts
+      at the inputs, not at the factorization: a Gram assembled in float32
+      already carries float32 rounding that an exact factorization cannot
+      undo.  The card computes float64 natively, so no mode switch is
+      needed.
     """
-    if method not in ("chol", "sweep"):
-        raise ValueError(f"unknown mll method {method!r} (chol | sweep)")
+    if method not in ("chol", "sweep", "chol64"):
+        raise ValueError(f"unknown mll method {method!r} "
+                         "(chol | sweep | chol64)")
+    if method == "chol64":
+        def f64(t):
+            return None if t is None else t.to(torch.float64)
+
+        c64 = constrain(cfg, GPParams(*[f64(leaf) for leaf in p]))
+        K64 = gram(cfg, c64, f64(X))
+        if prior_cov is not None:
+            K64 = K64 + f64(prior_cov)
+        return linalg.mll(K64, c64.noise, f64(y), mask=f64(mask),
+                          mean=f64(prior_mean)).to(X.dtype)
     c = constrain(cfg, p)
     K = gram(cfg, c, X)
     if prior_cov is not None:

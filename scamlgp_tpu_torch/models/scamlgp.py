@@ -123,9 +123,13 @@ def meta_fit_task_stack(data: TaskData, cfg: gp.GPConfig,
     followed by ``num_restarts`` prior draws from ``generator``; pass
     ``init_stack`` (leaves with leading (T, num_restarts + 1) axes) to use
     given draws instead.  ``mll_method``, ``route_blocked`` and
-    ``sweep_variant`` choose the objective's MLL route (``gp.mll``); on the
-    inverse route a task whose cached factor comes out non-finite is fitted
-    again on the Cholesky route (``refit_nonfinite_tasks``).
+    ``sweep_variant`` choose the objective's MLL route (``gp.mll``).  On
+    every route but ``chol`` a task whose cached factor comes out
+    non-finite is fitted again on the Cholesky route in the data's dtype
+    (``refit_nonfinite_tasks``).  That includes ``chol64``: its float64
+    objective stays finite where the cached factor, taken in the data's
+    dtype, fails; only the ``chol`` objective is non-finite exactly where
+    that factor is.
     """
     T, _, d = data.X.shape
     dtype, dev = data.X.dtype, data.X.device

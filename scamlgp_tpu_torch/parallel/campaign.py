@@ -1,30 +1,39 @@
 """Lock-step BO campaigns: studies as a batch axis
-(``scamlgp_tpu/parallel/campaign.py``, MAP mode).
+(``scamlgp_tpu/parallel/campaign.py``, MAP mode, host loop).
 
 One call runs S studies of a synthetic benchmark side by side: the meta-fit
 of all S x M source GPs as one batch, then per iteration the target MAP fits
 of all S studies x restarts as one batched L-BFGS, the UCB acquisition
 ascent of all S studies x starts as one batched Adam, and the benchmark
-evaluation.  The host loops over iterations only.
+evaluation.  The host loops over iterations only; with ``study_chunk`` it
+runs the iterations of one chunk of studies after another.
 
 With ``mll_method="sweep"`` every fit objective with N <= 128 goes through
 the hand-written sweep kernel of step scheme ``sweep_variant``
 (``ops/sweep.py``) with the analytic gradient of ``ops/inverse_mll.py``;
 with ``route_blocked`` as well, every one with 192 <= N <= 1024 (the
 meta-fit of the points-per-task ablations) goes through the
-blocked-Cholesky kernels (``ops/blocked_chol.py``).
+blocked-Cholesky kernels (``ops/blocked_chol.py``).  ``mll_method="chol64"``
+assembles and factors every fit objective's system in float64
+(``gp.mll``).
 
 The stages are timed in ``utils.profiling.GLOBAL_TIMER`` under the
 reference's names (``campaign_stage_inputs``, ``campaign_meta_fit``,
 ``campaign_bo_loop``, ``campaign_iteration``) and, within an iteration,
 ``iteration_draws``, ``iteration_fit_target``, ``iteration_acq_state``,
-``iteration_propose`` and ``iteration_benchmark``; each stage synchronizes
-the card before its clock is read.
+``iteration_propose`` and ``iteration_benchmark``; checkpoint writes are
+``campaign_checkpoint``.  Each stage synchronizes the card before its
+clock is read.
 
-Randomness comes from one ``torch.Generator`` on the host, seeded with an
-integer; its draws move to the device.  ``iteration_draws`` makes one
-iteration's draws and ``run_iteration`` takes them as arguments, so tests
-can hand the JAX package and the port the same draws.
+Randomness comes from host ``torch.Generator`` s; their draws move to the
+device.  The meta-fit's restarts come from one generator seeded with
+``seed``.  Iteration i's draws, for all S studies at once, come from
+``iteration_generator(seed, i)``, seeded from ``(seed, i)`` alone: a study
+chunk takes its rows of the full draw, so chunking does not change what a
+study sees, and a resumed campaign needs no generator state.
+``iteration_draws`` makes one iteration's draws and ``run_iteration``
+takes them as arguments, so tests can hand the JAX package and the port
+the same draws.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import dataclasses
 import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from scamlgp_tpu_torch.bo.acquisition import UpperConfidenceBound
@@ -42,6 +52,7 @@ from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.ops import inverse_mll
+from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
@@ -57,7 +68,7 @@ class CampaignConfig:
     acq_topk: int = 4
     acq_steps: int = 30
     acq_lr: float = 0.05
-    mll_method: str = "chol"               # "chol" | "sweep"
+    mll_method: str = "chol"               # "chol" | "sweep" | "chol64"
     route_blocked: bool = False            # sweep: blocked kernel, mid N
     sweep_variant: str = "select"          # sweep: step scheme, N <= 128
     pruning_threshold: float = 1e-3        # model.py:226
@@ -78,14 +89,35 @@ class CampaignResult(NamedTuple):
     y: torch.Tensor        # (S, E) noisy observed losses
     y_clean: torch.Tensor  # (S, E) noise-free losses
     meta_fit_seconds: float
-    iteration_seconds: list  # host clock per BO iteration, device synced
+    iteration_seconds: list  # host clock per BO iteration run, device
+    #                          synced (chunk after chunk in a chunked run)
     launches: dict           # kernel name -> launches in the meta-fit, then
-    #                          in each iteration (all 0 where no CUDA
+    #                          in each iteration run (all 0 where no CUDA
     #                          tensor ran)
     nonfinite_source_tasks: int  # fitted source GPs whose cached factor
     #                              or alpha is not finite after the
     #                              meta-fit's Cholesky-route refit (their
     #                              study's predictions are then not finite)
+    mask: torch.Tensor     # (S, E) 1 where the evaluation is filled: all
+    #                        1 unless ``stop_after`` ended the run early
+
+
+class CampaignState(NamedTuple):
+    """What a campaign checkpoint holds: the target tasks and meta-data
+    (target tasks are drawn unseeded, so a fresh process would otherwise
+    resume against other targets), the buffers, the fitted target
+    parameters, the seed, and the iterations every study has completed
+    (informational: progress is read from ``mask``)."""
+
+    task_params: dict
+    meta_data: m.TaskData
+    X: torch.Tensor
+    y: torch.Tensor
+    y_clean: torch.Tensor
+    mask: torch.Tensor
+    params: m.TargetParams
+    seed: torch.Tensor        # () int64
+    completed: torch.Tensor   # () int64
 
 
 class IterationDraws(NamedTuple):
@@ -94,6 +126,18 @@ class IterationDraws(NamedTuple):
     restarts: m.TargetParams   # (S, fit_restarts, ...) prior draws
     raw: torch.Tensor          # (S, acq_raw_samples, d) uniform candidates
     noise: torch.Tensor        # (S,) standard normal observation noise
+
+
+def iteration_generator(seed: int, i: int) -> torch.Generator:
+    """Iteration ``i``'s host generator, seeded with
+    ``numpy.random.SeedSequence([seed, i]).generate_state(1, uint64)[0]``."""
+    state = np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)
+    return torch.Generator(device="cpu").manual_seed(int(state[0]))
+
+
+def _rows(tree, c0: int, c1: int):
+    """Rows c0:c1 of every leaf (the study axis) of a NamedTuple tree."""
+    return fit_lib.tree_map(lambda leaf: leaf[c0:c1], tree)
 
 
 def iteration_draws(generator: torch.Generator, cfg: CampaignConfig,
@@ -218,7 +262,10 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                  cfg: CampaignConfig = CampaignConfig(),
                  meta_fit_restarts: int = 3, meta_fit_steps: int = 50,
                  meta_fit_chunks: int = 1, loop: str = "host", mesh=None,
-                 checkpoint_path=None, device=None) -> CampaignResult:
+                 checkpoint_path=None, checkpoint_every: int = 10,
+                 stop_after: Optional[int] = None,
+                 study_chunk: Optional[int] = None,
+                 device=None) -> CampaignResult:
     """Run S studies in lock-step.
 
     Args:
@@ -227,10 +274,27 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
         task_params: dict of (S,) per-study target-task parameters.
         meta_data: TaskData with leading axes (S, M, N) — per-study meta
             observations, already noisy if desired.
-        seed: seeds the host generator of every random draw.
+        seed: seeds the meta-fit's generator and, with the iteration,
+            each iteration's (``iteration_generator``).
         meta_fit_chunks: split the (S*M)-task meta-fit into this many equal
             sequential batches (must divide S).  The draws are made for all
             tasks first, so the result does not depend on the split.
+        checkpoint_path: write the campaign's state (``CampaignState``) to
+            ``<checkpoint_path>.npz`` before the first iteration, every
+            ``checkpoint_every`` iterations and at the end; if that file
+            exists, the campaign resumes from it, its target tasks and
+            meta-data taking the place of ``task_params`` and
+            ``meta_data``.
+        stop_after: checkpoint and return after this many iterations (resume
+            by calling again with the same ``checkpoint_path``).  Not with
+            study chunks.
+        study_chunk: run the BO loop over sequential chunks of at most this
+            many studies instead of all S at once; ``None`` or 0 runs all
+            S together.  Each study's result does not depend on the chunks
+            (the draws are made for all S and sliced).  A chunk resumes
+            from the iterations that its studies' ``mask`` shows done, so
+            a checkpoint written chunked resumes only chunked, with the
+            same ``study_chunk``.
         device: where the campaign runs; ``cuda`` when left out.
     """
     if cfg.fit_method != "map":
@@ -240,8 +304,8 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
         raise NotImplementedError(f"loop={loop!r}: only 'host' is ported")
     if mesh is not None:
         raise NotImplementedError("study sharding over a mesh is not ported")
-    if checkpoint_path is not None:
-        raise NotImplementedError("checkpoint/resume is not ported")
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every={checkpoint_every} < 1")
     device = resolve_device(device)
     source_cfg = source_cfg or gp.source_gp_config()
     target_cfg = target_cfg or gp.target_gp_config()
@@ -255,6 +319,29 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
     if S % meta_fit_chunks:
         raise ValueError(f"meta_fit_chunks={meta_fit_chunks} does not "
                          f"divide S={S}")
+    chunk = study_chunk if study_chunk and study_chunk < S else 0
+    if chunk and stop_after is not None:
+        raise ValueError("stop_after is not supported with study chunking")
+
+    # ---- restore, before the meta-fit: the checkpoint's targets and
+    # meta-data replace the arguments ---------------------------------------
+    state = CampaignState(
+        task_params=task_params, meta_data=meta_data,
+        X=torch.zeros((S, E, d), dtype=dtype, device=device),
+        y=torch.zeros((S, E), dtype=dtype, device=device),
+        y_clean=torch.zeros((S, E), dtype=dtype, device=device),
+        mask=torch.zeros((S, E), dtype=dtype, device=device),
+        params=m.init_target_params(target_cfg, M, d, dtype, device,
+                                    batch_shape=(S,)),
+        seed=torch.tensor(seed), completed=torch.tensor(0))
+    resumed = checkpoint_path is not None and ckpt.exists(checkpoint_path)
+    if resumed:
+        state = ckpt.load_pytree_like(checkpoint_path, state)
+        if int(state.seed) != seed:
+            raise ValueError(f"the checkpoint at {checkpoint_path} was "
+                             f"written with seed {int(state.seed)}, not "
+                             f"{seed}")
+        task_params, meta_data = state.task_params, state.meta_data
     generator = torch.Generator(device="cpu").manual_seed(seed)
 
     # ---- meta-fit: (study, task) folded into one task axis ----------------
@@ -288,32 +375,80 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                   & torch.isfinite(flat_stack.alpha).all(-1))
 
     # ---- BO loop ----------------------------------------------------------
-    Xbuf = torch.zeros((S, E, d), dtype=dtype, device=device)
-    ybuf = torch.zeros((S, E), dtype=dtype, device=device)
-    yclean = torch.zeros((S, E), dtype=dtype, device=device)
-    mask = torch.zeros((S, E), dtype=dtype, device=device)
-    params = m.init_target_params(target_cfg, M, d, dtype, device,
-                                  batch_shape=(S,))
+    Xbuf, ybuf, yclean, mask, params = (state.X, state.y, state.y_clean,
+                                        state.mask, state.params)
+
+    def save():
+        with GLOBAL_TIMER("campaign_checkpoint", device):
+            done = int(mask.sum(-1).min())
+            ckpt.save_pytree(checkpoint_path, CampaignState(
+                task_params, meta_data, Xbuf, ybuf, yclean, mask, params,
+                torch.tensor(seed), torch.tensor(done)))
+
+    if checkpoint_path is not None and not resumed:
+        save()   # pins the unseeded targets on disk before any iteration
+    done = mask.sum(-1).round().long().cpu()
+    if resumed and not chunk and done.unique().numel() > 1:
+        raise ValueError(
+            "checkpoint has per-study progress at different iterations "
+            "(written by a study-chunked campaign); resume with the same "
+            "study_chunk setting instead of study_chunk=0")
+    bounds = ([(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+              if chunk else [(0, S)])
     iteration_seconds = []
+    stopped = False
     with GLOBAL_TIMER("campaign_bo_loop", device):
-        for i in range(E):
-            t0 = time.perf_counter()
-            with GLOBAL_TIMER("campaign_iteration", device):
-                with GLOBAL_TIMER("iteration_draws", device):
-                    draws = iteration_draws(generator, cfg, target_cfg, S, M,
-                                            d, dtype, device)
-                Xbuf, ybuf, yclean, mask, params = run_iteration(
-                    benchmark_fn, stack, task_params, Xbuf, ybuf, yclean,
-                    mask, params, draws, i, source_cfg, target_cfg, cfg)
-            iteration_seconds.append(time.perf_counter() - t0)
-            counts.append(inverse_mll.kernel_launches())
+        for c0, c1 in bounds:
+            d_c = done[c0:c1]
+            if int(d_c.max()) != int(d_c.min()):
+                raise ValueError(
+                    "checkpoint has per-study progress at different "
+                    f"iterations within study chunk [{c0}, {c1}) (min "
+                    f"{int(d_c.min())}, max {int(d_c.max())}); it was written "
+                    "with a different study_chunk — resume with the same "
+                    "study_chunk setting as the run that wrote it")
+            i0 = int(d_c.min())
+            if i0 >= E:
+                continue
+            st_c, tp_c = _rows(stack, c0, c1), {k: v[c0:c1] for k, v in
+                                                task_params.items()}
+            Xb, yb, yc, mk = (t[c0:c1] for t in (Xbuf, ybuf, yclean, mask))
+            pr = _rows(params, c0, c1)
+            for i in range(i0, E):
+                t0 = time.perf_counter()
+                with GLOBAL_TIMER("campaign_iteration", device):
+                    with GLOBAL_TIMER("iteration_draws", device):
+                        draws = _rows(iteration_draws(
+                            iteration_generator(seed, i), cfg, target_cfg, S,
+                            M, d, dtype, device), c0, c1)
+                    Xb, yb, yc, mk, pr = run_iteration(
+                        benchmark_fn, st_c, tp_c, Xb, yb, yc, mk, pr, draws,
+                        i, source_cfg, target_cfg, cfg)
+                iteration_seconds.append(time.perf_counter() - t0)
+                counts.append(inverse_mll.kernel_launches())
+                stopped = stop_after is not None and i + 1 >= i0 + stop_after
+                last = i + 1 == E or stopped
+                if last or (checkpoint_path is not None
+                            and (i + 1) % checkpoint_every == 0):
+                    for full, part in zip(
+                            (Xbuf, ybuf, yclean, mask,
+                             *fit_lib.tree_leaves(params)),
+                            (Xb, yb, yc, mk, *fit_lib.tree_leaves(pr))):
+                        full[c0:c1] = part
+                    if checkpoint_path is not None:
+                        save()
+                if stopped:
+                    break
+            if stopped:
+                break
     return CampaignResult(X=Xbuf, y=ybuf, y_clean=yclean,
                           meta_fit_seconds=meta_fit_seconds,
                           iteration_seconds=iteration_seconds,
                           launches={k: [b[k] - a[k] for a, b in
                                         zip(counts, counts[1:])]
                                     for k in counts[0]},
-                          nonfinite_source_tasks=int(nonfinite.sum()))
+                          nonfinite_source_tasks=int(nonfinite.sum()),
+                          mask=mask)
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

@@ -3,8 +3,9 @@ with the JAX package's committed regret rows.
 
     python -m scamlgp_tpu_torch.validate [--benchmark Branin] [--tasks 8]
         [--points 32] [--sigma 1.0] [--studies 128] [--evals 40]
-        [--mll-method sweep] [--route-blocked] [--sweep-variant select]
-        [--optimum-method shgo] [--seed 0]
+        [--mll-method sweep|chol|chol64] [--route-blocked]
+        [--sweep-variant select] [--optimum-method shgo] [--seed 0]
+        [--study-chunk K] [--checkpoint PATH] [--stop-after N]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
         [--driver campaign|sequential]
 
@@ -12,18 +13,28 @@ The defaults are the Branin T8 run of the committed curve
 ``docs/branin_t8_p32_n1_regrets_tpu_128studies.npy``: 8 meta-tasks x 32
 points, noise 1.0.  The points-per-task ablation rows are
 ``--points 256 --studies 16 --route-blocked`` (Branin, committed in
-``docs/branin_ablation_points_n256_tpu.json``) and ``--benchmark
+``docs/branin_ablation_points_n256_tpu.json``; ``--mll-method chol64``
+assembles and factors those systems in float64) and ``--benchmark
 Hartmann6D --points 512 --sigma 0.1 --studies 16 --evals 80
 --route-blocked --optimum-method device`` (``docs/hm6_ablation_points_tpu.json``).
 The paper's main Hartmann6D cell, T8 N_m=128 (committed curve
 ``docs/hm6_t8_p128_n01_regrets_tpu_128studies.npy``), is ``--benchmark
 Hartmann6D --points 128 --sigma 0.1 --evals 80 --optimum-method device``;
 ``--sweep-variant fused`` runs it as the reference's
-``SCAMLGP_SWEEP_STEP=fused``.  Always the CampaignConfig defaults and
+``SCAMLGP_SWEEP_STEP=fused``.  The many-task configuration of BASELINE.json
+(config 4) is ``--benchmark Quadratic --tasks 128 --points 32 --sigma 0.05
+--studies 4 --evals 16``.  Always the CampaignConfig defaults and
 float32.  Prints one JSON line with the median simple regret per
 iteration, the timings (and the campaign's stages from
 ``utils.profiling.GLOBAL_TIMER``), each kernel's launches, and the card's
 name and power limit.
+
+``--study-chunk K`` runs the BO loop over chunks of K studies, one after
+another.  ``--checkpoint PATH`` writes the campaign's state to
+``PATH.npz`` (``run_campaign``'s ``checkpoint_path``) and the studies'
+optima to ``PATH_optima.npy``; run the same command again to resume from
+it.  ``--stop-after N`` (not with ``--study-chunk``) returns after N
+iterations; the JSON line then summarizes the iterations completed.
 
 ``--driver sequential`` runs the same experiment study by study through
 the sequential driver instead, as the reference runs it: for each study
@@ -42,7 +53,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -62,6 +75,7 @@ from scamlgp_tpu_torch.parallel.campaign import (
     run_campaign,
     simple_regret,
 )
+from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
@@ -72,6 +86,20 @@ def _card(device: torch.device) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def pinned_optima(checkpoint, optima: torch.Tensor) -> torch.Tensor:
+    """The optima of the target tasks that a campaign checkpointed at
+    ``checkpoint`` restores.  Targets are drawn unseeded, so a new process
+    draws others: where the checkpoint exists, the optima written beside
+    it (``<checkpoint>_optima.npy``) are returned; otherwise ``optima``,
+    written there first."""
+    path = str(checkpoint) + "_optima.npy"
+    if ckpt.exists(checkpoint) and os.path.exists(path):
+        return torch.as_tensor(np.load(path), dtype=optima.dtype,
+                               device=optima.device)
+    ckpt.write_atomic(path, lambda fh: np.save(fh, optima.cpu().numpy()))
+    return optima
 
 
 def compare(ref: np.ndarray, reg: np.ndarray, seed: int = 0,
@@ -151,13 +179,17 @@ def run_sequential(args, device: torch.device):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--benchmark", default="Branin",
-                    choices=["Branin", "Hartmann6D"])
+                    choices=["Branin", "Hartmann3D", "Hartmann6D",
+                             "Quadratic"])
     ap.add_argument("--tasks", type=int, default=8)
     ap.add_argument("--points", type=int, default=32)
     ap.add_argument("--sigma", type=float, default=1.0)
     ap.add_argument("--studies", type=int, default=128)
     ap.add_argument("--evals", type=int, default=40)
-    ap.add_argument("--mll-method", default="sweep", choices=["chol", "sweep"])
+    ap.add_argument("--mll-method", default="sweep",
+                    choices=["chol", "sweep", "chol64"],
+                    help="the fit objectives' MLL route; chol64 assembles "
+                         "and factors each system in float64")
     ap.add_argument("--route-blocked", action="store_true",
                     help="let 192 <= N <= 1024 take the blocked-Cholesky "
                          "kernels (with --mll-method sweep)")
@@ -167,6 +199,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--optimum-method", default="shgo",
                     choices=["shgo", "device"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--study-chunk", type=int, default=None,
+                    help="run the BO loop over chunks of at most this many "
+                         "studies, one after another (0: all at once)")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="checkpoint the campaign at PATH.npz; resumes "
+                         "from it when it exists")
+    ap.add_argument("--stop-after", type=int, default=None,
+                    help="checkpoint and stop after this many iterations")
     ap.add_argument("--out", default=None, help="save the (S, E) regrets")
     ap.add_argument("--compare", default=None,
                     help="a committed (S_ref, E) regret curve (.npy) to "
@@ -189,6 +229,8 @@ def main(argv=None) -> dict:
         getattr(benchmarks, args.benchmark), [args.points] * args.tasks,
         range(args.studies), noise_std=args.sigma, dtype=torch.float32,
         device=device, optimum_method=args.optimum_method)
+    if args.checkpoint:
+        optima = pinned_optima(args.checkpoint, optima)
     setup_s = time.perf_counter() - t0
     cfg = CampaignConfig(n_evaluations=args.evals, noise_std=args.sigma,
                          mll_method=args.mll_method,
@@ -196,22 +238,34 @@ def main(argv=None) -> dict:
                          sweep_variant=args.sweep_variant)
     GLOBAL_TIMER.reset()
     t0 = time.perf_counter()
-    res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device)
+    res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device,
+                       checkpoint_path=args.checkpoint,
+                       stop_after=args.stop_after,
+                       study_chunk=args.study_chunk)
     run_s = time.perf_counter() - t0
     reg = simple_regret(res.y_clean, optima).cpu().numpy()
+    completed = int(res.mask.sum(-1).min())
+    if completed < args.evals:
+        print(f"# stopped after {completed} of {args.evals} iterations; run "
+              "again with the same --checkpoint to resume", file=sys.stderr)
+        reg = reg[:, :max(completed, 1)]
     out = {
         "benchmark": args.benchmark, "tasks": args.tasks,
         "points": args.points, "sigma": args.sigma,
         "studies": args.studies, "evals": args.evals,
+        "completed_iterations": completed,
         "dtype": "float32", "mll_method": args.mll_method,
         "route_blocked": args.route_blocked,
         "sweep_variant": args.sweep_variant,
-        "optimum_method": args.optimum_method, "device": str(device),
-        "card": _card(device),
+        "optimum_method": args.optimum_method,
+        "study_chunk": args.study_chunk, "checkpoint": args.checkpoint,
+        "device": str(device), "card": _card(device),
         "setup_s": setup_s, "run_s": run_s,
         "meta_fit_s": res.meta_fit_seconds,
         "nonfinite_source_tasks": res.nonfinite_source_tasks,
-        "mean_iteration_s": float(np.mean(res.iteration_seconds)),
+        "iterations_run": len(res.iteration_seconds),
+        "mean_iteration_s": (float(np.mean(res.iteration_seconds))
+                             if res.iteration_seconds else None),
         "iteration_s": res.iteration_seconds,
         "stages": GLOBAL_TIMER.report(),
         "launches": {k: sum(v) for k, v in res.launches.items()},

@@ -251,7 +251,6 @@ def test_simple_regret_matches():
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(checkpoint_path="ckpt"),
                                     dict(loop="device"),
                                     dict(cfg=tc.CampaignConfig(
                                         fit_method="hmc"))])

@@ -72,7 +72,7 @@ def test_map_objective_value_and_grad(problem, cfg_name, method, extras):
                                    atol=1e-10)
 
 
-@pytest.mark.parametrize("method", ["chol", "sweep"])
+@pytest.mark.parametrize("method", ["chol", "sweep", "chol64"])
 def test_batched_mll_matches_per_instance(problem, method):
     """Leading restart axes on the parameters broadcast against the data."""
     rng = np.random.default_rng(2)
@@ -93,7 +93,7 @@ def test_unknown_mll_method_raises(problem):
     with pytest.raises(ValueError):
         tgp.mll(tgp.source_gp_config(),
                 gp_params(to_numpy_dict(problem["p"]), device="cpu"),
-                T(problem["X"]), T(problem["y"]), method="chol64")
+                T(problem["X"]), T(problem["y"]), method="cholesky")
 
 
 @pytest.mark.parametrize("full_cov", [True, False])

@@ -61,8 +61,9 @@ def test_port_and_chip_smoke_import_without_jax():
 
 def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     """The import guard above walks the package; the kernel N-scaling bench,
-    the profiling hooks, the Gram kernel's module, the sequential driver
-    and the study unit are among the modules that it imports."""
+    the profiling hooks, the Gram kernel's module, the sequential driver,
+    the study unit, the checkpoints, the ablation driver and the Quadratic
+    benchmark are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -80,7 +81,12 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.benchmarking.noise.benchmark",
             "scamlgp_tpu_torch.benchmarking.noise.homoscedastic",
             "scamlgp_tpu_torch.benchmarking.bbo_helper",
-            "scamlgp_tpu_torch.benchmarking.local_runner"} <= names
+            "scamlgp_tpu_torch.benchmarking.local_runner",
+            "scamlgp_tpu_torch.utils.checkpoint",
+            "scamlgp_tpu_torch.ablation",
+            "scamlgp_tpu_torch.batch_probe",
+            "scamlgp_tpu_torch.benchmarking.functions.quadratic",
+            "scamlgp_tpu_torch.benchmarking.benchmarks.quadratic"} <= names
 
 
 def test_chip_smoke_fails_without_cuda():
