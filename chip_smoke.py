@@ -81,6 +81,32 @@ Phases, each printing one JSON line with its own seconds:
    (``CHUNK_TOL``), match (a) in each study's noise draws and first
    proposals.  One line per run with its
    seconds, meta-fit seconds and ``sweep_inverse`` launches;
+4c. posterior: the posterior-marginalized fits on Branin T8 (8 meta-tasks x
+   32 points, d=2, noise 1.0), float32, ``mll_method="sweep"``, the
+   CampaignConfig sampler defaults, POSTERIOR_STUDIES studies: three
+   campaigns, ``fit_method`` ``"hmc"`` (2 chains x (64 warmup + 16
+   samples) x 12 leapfrog steps) and ``"vi"`` (200 ADVI steps x 8 draws)
+   over POSTERIOR_EVALS evaluations, ``"nuts"`` (max depth 6) over
+   POSTERIOR_NUTS_EVALS = 1: its lock-step transitions run to the longest
+   chain's 63 steps, so that one NUTS iteration costs about six HMC ones,
+   and its launch bounds hold at one iteration as at many.  Each campaign
+   has its own meta-fit.  Every sampler step evaluates the target log-density and
+   gradient of all studies x chains (or x Monte-Carlo draws) as one batch,
+   one ``select`` launch.  Each campaign's launches per iteration must be
+   what the design predicts (``posterior_launches``): HMC 1 + 80 x 12 =
+   961 (the leapfrog's last evaluation is the accept step's, where the
+   JAX package evaluates it again: 1041 there), ADVI 200, NUTS between
+   1 + 80 x 2 = 161 and 1 + 80 x 64 = 5121 (each transition's doublings
+   and its extra gradient at the chosen state).  Every proposal must be
+   finite and in the unit cube.  The HMC campaign's last mixture draws
+   then hold the kernel route's float32 log-density and gradient at the
+   final data against the plain version's (``sweep_inverse_reference``
+   in place of the kernel), each within twice the plain version's
+   distance from the float64 ones.  Then the sequential driver with
+   ``fit_method`` ``"hmc"`` and ``"vi"`` (its default sampler settings,
+   float64, the Cholesky route: no kernel) through ``run_study``, 1 study
+   x POSTERIOR_DRIVER_EVALS evaluations each.  ``select`` is then timed
+   at the samplers' shapes (``posterior_times``);
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -106,6 +132,7 @@ Any failed check exits non-zero before the result lines.  With no CUDA
 device it exits 2 at once.
 """
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -129,6 +156,7 @@ from scamlgp_tpu_torch.bo.optimize import sobol_unit
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
 )
+from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as model_lib
 from scamlgp_tpu_torch.ops import (
@@ -144,6 +172,7 @@ from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
     run_campaign,
     simple_regret,
+    target_objective,
 )
 from scamlgp_tpu_torch.profile_kernels import (
     BASELINES,
@@ -201,6 +230,16 @@ RESUME_TASKS, RESUME_POINTS, RESUME_SIGMA = 128, 32, 0.05
 RESUME_SEEDS, RESUME_EVALS, RESUME_STOP, RESUME_CHUNK = range(4), 4, 2, 2
 #: where the phase's checkpoints go (removed at its end)
 RESUME_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoints"
+#: the posterior phase: Branin T8 N_m=32 (its width and the CampaignConfig
+#: sampler defaults are not cut) cut to POSTERIOR_STUDIES x POSTERIOR_EVALS
+#: (NUTS: x POSTERIOR_NUTS_EVALS), one campaign a fit method; the
+#: sequential driver, 1 study x POSTERIOR_DRIVER_EVALS a method, with its
+#: own sampler defaults
+POSTERIOR_TASKS, POSTERIOR_POINTS, POSTERIOR_SIGMA = 8, 32, 1.0
+POSTERIOR_STUDIES, POSTERIOR_EVALS, POSTERIOR_DRIVER_EVALS = 4, 2, 3
+POSTERIOR_NUTS_EVALS = 1
+POSTERIOR_METHODS, POSTERIOR_DRIVER_METHODS = ("hmc", "nuts", "vi"), (
+    "hmc", "vi")
 #: chol64 against the MLL computed wholly in float64: the cast alone
 TOL_CHOL64 = 1e-6
 #: the chunked run against the uninterrupted one where it is not bit for
@@ -713,6 +752,223 @@ def phase_campaign_resume(device="cuda"):
     return launches
 
 
+def posterior_launches(cfg: CampaignConfig):
+    """The ``select`` launches that one iteration of a posterior-fit
+    campaign makes, as (least, most): one a log-density evaluation of the
+    whole batch.  HMC: the start, then ``hmc_leapfrog`` a transition.
+    ADVI: one a step.  NUTS: the start, then a transition's leapfrog steps
+    (1 to 2^max_depth - 1, the longest chain's) and the gradient at its
+    chosen state."""
+    T = cfg.hmc_warmup + cfg.hmc_samples
+    if cfg.fit_method == "hmc":
+        n = 1 + T * cfg.hmc_leapfrog
+        return n, n
+    if cfg.fit_method == "vi":
+        return cfg.vi_steps, cfg.vi_steps
+    return 1 + 2 * T, 1 + T * 2 ** cfg.hmc_max_depth
+
+
+@contextlib.contextmanager
+def plain_sweep():
+    """``sweep.sweep_inverse`` replaced by its plain version (on any
+    device), so that the route's callers run it instead of the kernel."""
+    kernel = sweep.sweep_inverse
+
+    def plain(A, variant="select"):
+        return sweep.sweep_inverse_reference(
+            A, sweep.resolve_variant(A.shape[-1], variant))
+
+    sweep.sweep_inverse = plain
+    try:
+        yield
+    finally:
+        sweep.sweep_inverse = kernel
+
+
+def log_density_and_grad(res, cfg, draws, dtype, plain=False):
+    """The campaign's target log-density and its gradient at the draws
+    (S, K, ...) on the campaign's final data, on ``cfg``'s route, with
+    every input cast to ``dtype``: ((S, K) values, (S, K, D) gradients)."""
+    def cast(tree):
+        return fit_lib.tree_map(lambda leaf: leaf.to(dtype), tree)
+
+    stack = cast(res.stack)
+    X, y, mask = (t.to(dtype) for t in (res.X, res.y, res.mask))
+    out_mean, out_std = model_lib.output_normalizer(stack, y, mask)
+    objective = target_objective(stack, gp.source_gp_config(),
+                                 gp.target_gp_config(), X, y, mask, out_mean,
+                                 out_std, cfg)
+    q = fit_lib.flatten(cast(draws), 2).detach().requires_grad_(True)
+    with torch.enable_grad(), (plain_sweep() if plain
+                               else contextlib.nullcontext()):
+        v = -objective(fit_lib.unflatten(q, draws, 2))
+        g, = torch.autograd.grad(v.sum(), q)
+    return v.detach(), g
+
+
+def posterior_rounding(res, cfg):
+    """The kernel route's float32 log-density and gradient at the
+    campaign's mixture draws against the plain version's, each as [max,
+    median] over the draws of its distance from float64 (the same
+    objective on the Cholesky route, every input promoted): |value error|
+    / max(|value|, 1) and max |gradient error| / max(max |gradient|, 1).
+    Fails where the kernel is farther than twice the plain version."""
+    draws = res.samples
+    v64, g64 = log_density_and_grad(
+        res, CampaignConfig(fit_method=cfg.fit_method, mll_method="chol"),
+        draws, torch.float64)
+
+    def rel(v, g):
+        rv = (v.double() - v64).abs() / v64.abs().clamp_min(1.0)
+        rg = ((g.double() - g64).abs().amax(-1)
+              / g64.abs().amax(-1).clamp_min(1.0))
+        return ([rv.max().item(), rv.median().item()],
+                [rg.max().item(), rg.median().item()])
+
+    out = {}
+    for name, plain in (("kernel", False), ("plain", True)):
+        v, g = log_density_and_grad(res, cfg, draws, torch.float32, plain)
+        check(bool(torch.isfinite(v).all() and torch.isfinite(g).all()),
+              f"posterior rounding: the {name} route is not finite")
+        out[name] = dict(zip(("value", "gradient"), rel(v, g)))
+    for what in ("value", "gradient"):
+        check(out["kernel"][what][0] <= 2.0 * out["plain"][what][0],
+              f"posterior rounding: the kernel's {what} is "
+              f"{out['kernel'][what][0]} from float64, its plain version's "
+              f"{out['plain'][what][0]}")
+    out["draws"] = int(v64.numel())
+    return out
+
+
+def phase_posterior(device="cuda"):
+    """The HMC, NUTS and ADVI campaigns on Branin T8 N_m=32, the rounding
+    guard on the HMC campaign's draws, then the sequential driver with
+    HMC and VI; returns the campaigns' launches of every kernel."""
+    t0 = time.perf_counter()
+    S, E = POSTERIOR_STUDIES, POSTERIOR_EVALS
+    fn, tp, md, optima = campaign_inputs_from_benchmark(
+        Branin, [POSTERIOR_POINTS] * POSTERIOR_TASKS, range(S),
+        noise_std=POSTERIOR_SIGMA, dtype=torch.float32, device=device)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    campaigns, kept = [], {}
+    for method in POSTERIOR_METHODS:
+        E_m = POSTERIOR_NUTS_EVALS if method == "nuts" else E
+        cfg = CampaignConfig(n_evaluations=E_m, noise_std=POSTERIOR_SIGMA,
+                             mll_method="sweep", fit_method=method)
+        tr = time.perf_counter()
+        GLOBAL_TIMER.reset()
+        res = run_campaign(fn, tp, md, seed=0, cfg=cfg,
+                           meta_fit_restarts=META_RESTARTS,
+                           meta_fit_steps=META_STEPS, device=device)
+        sync(device)
+        stages = GLOBAL_TIMER.report()
+        kept[method] = (res, cfg)
+        lo, hi = posterior_launches(cfg)
+        per_iter = res.launches["sweep_inverse"][1:]
+        X = res.X
+        check(X.shape == (S, E_m, 2) and bool(torch.isfinite(X).all())
+              and bool(((X >= 0) & (X <= 1)).all()),
+              f"posterior {method}: proposals out of the unit cube")
+        check(res.launches["sweep_inverse"][0] > 0,
+              f"posterior {method}: the meta-fit launched select no time")
+        check(all(lo <= n <= hi for n in per_iter),
+              f"posterior {method}: select launches per iteration "
+              f"{per_iter}, expected {lo}..{hi}")
+        check(all(sum(v[1:]) == 0 for k, v in res.launches.items()
+                  if k != "sweep_inverse"),
+              f"posterior {method}: another kernel launched: "
+              f"{res.launches}")
+        check(res.nonfinite_source_tasks == 0,
+              f"posterior {method}: a source GP with a non-finite factor")
+        regret = simple_regret(res.y_clean, optima)
+        check(bool(torch.isfinite(regret).all()),
+              f"posterior {method}: non-finite regret")
+        sampler = stages.get("iteration_sample_target", {})
+        loop = stages.get("campaign_iteration", {})
+        campaigns.append({
+            "fit_method": method, "evaluations": E_m,
+            "seconds": time.perf_counter() - tr,
+            "meta_fit_s": res.meta_fit_seconds,
+            "iteration_s": res.iteration_seconds,
+            "select_launches_meta_fit": res.launches["sweep_inverse"][0],
+            "select_launches_per_iteration": per_iter,
+            "predicted_per_iteration": [lo, hi],
+            "sampler_share": (sampler.get("total_s", 0.0)
+                              / max(loop.get("total_s", 0.0), 1e-12)),
+            "median_regret": [float(v) for v in regret.median(0).values],
+            "stages": stages})
+    launches = launches_now()
+    res, cfg = kept["hmc"]
+    rounded = posterior_rounding(res, cfg)
+
+    drivers = []
+    for method in POSTERIOR_DRIVER_METHODS:
+        ts = time.perf_counter()
+        GLOBAL_TIMER.reset()
+        TimedBO.made.clear()
+        out = run_study(TimedBO, {"fit_method": method, "device": device},
+                        Branin,
+                        {"n_data_per_task": [POSTERIOR_POINTS]
+                         * POSTERIOR_TASKS}, POSTERIOR_DRIVER_EVALS, 0,
+                        HomoscedasticGaussianNoise({"loss": POSTERIOR_SIGMA}))
+        sync(device)
+        opt = TimedBO.made[0]
+        space = opt.search_space
+        for e in out["evaluations"]:
+            vec = space.to_numerical(e["configuration"])
+            check(bool(np.isfinite(vec).all())
+                  and bool(((vec >= 0) & (vec <= 1)).all())
+                  and space.check_validity(e["configuration"]),
+                  f"posterior driver {method}: proposal "
+                  f"{e['configuration']}")
+        check(opt._hyper_samples is not None,
+              f"posterior driver {method}: no mixture draws")
+        mean, std = opt.predict([space.from_numerical(v) for v in
+                                 sobol_unit(0, 16, len(space)).numpy()])
+        check(bool(np.isfinite(mean).all() and np.isfinite(std).all()),
+              f"posterior driver {method}: predict is not finite")
+
+        def per_eval(stage):
+            tot = [m.get(stage, 0.0) for m in opt.marks]
+            return [b - a for a, b in zip(tot, tot[1:])]
+
+        drivers.append({
+            "fit_method": method, "seconds": time.perf_counter() - ts,
+            "evaluations": POSTERIOR_DRIVER_EVALS,
+            "meta_fit_s": opt.marks[0].get("meta_fit", 0.0),
+            "refit_s": per_eval("refit"),
+            "acquisition_s": per_eval("acquisition"),
+            "mixture_draws": int(opt._hyper_samples.raw_weights.shape[0]),
+            "regret": [float(v) for v in study_regret(out)]})
+    emit("posterior", time.perf_counter() - t0, benchmark="Branin",
+         tasks=POSTERIOR_TASKS, points=POSTERIOR_POINTS, d=2,
+         sigma=POSTERIOR_SIGMA, studies=S, setup_s=setup_s, campaigns=campaigns, rounding=rounded,
+         drivers=drivers, launches=launches)
+    return launches
+
+
+def posterior_times():
+    """``select`` timed beside its plain version, the library call and the
+    bound at the samplers' batches: this phase's (S x chains and S x ADVI
+    draws, E x E) and the validate runs' (16 studies: 32 chains or 128 ADVI
+    draws at n = 40; 32 chains at n = 80)."""
+    cfg = CampaignConfig()
+    rng = np.random.default_rng(5)
+    shapes = [(POSTERIOR_STUDIES * cfg.hmc_chains, POSTERIOR_EVALS),
+              (POSTERIOR_STUDIES * cfg.vi_mc, POSTERIOR_EVALS),
+              (16 * cfg.hmc_chains, 40), (16 * cfg.vi_mc, 40),
+              (16 * cfg.hmc_chains, 80)]
+    out = []
+    for B, n in shapes:
+        A = torch.as_tensor(spd_batch(rng, B, n), device="cuda")
+        err = check_kernel("sweep_inverse", A, "sampler")
+        out.append({**time_kernel("sweep_inverse", A, 200, 20),
+                    "max_abs_err": err})
+    emit("posterior_times", None, kernel="sweep_inverse", timed=out)
+    return out
+
+
 def phase_bench():
     """The kernel N-scaling bench at BENCH_SHAPE with every variant; every
     entry must be a number, and the pair and blocked variants must have
@@ -908,6 +1164,8 @@ def main():
     max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
     by_slice = {key: phase_slice(key) for key in SLICES}
     by_slice["campaign_resume"] = phase_campaign_resume()
+    by_slice["posterior"] = phase_posterior()
+    sampler_times = posterior_times()
     by_slice["bench_sweep_n"] = phase_bench()
     by_slice["driver"] = phase_driver()
     # each kernel's launches in the slice (or the bench) whose main path
@@ -947,6 +1205,9 @@ def main():
             # smem variant's shape)
             "other_shapes": others.get(name, {}),
         })
+    # select at the posterior samplers' batches
+    next(k for k in kernels if k["name"] == "sweep_inverse")[
+        "sampler_shapes"] = sampler_times
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

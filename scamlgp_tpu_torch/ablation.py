@@ -6,7 +6,8 @@ the JAX package).
 
     python -m scamlgp_tpu_torch.ablation --benchmark Branin --axis tasks \\
         --values 2 4 8 16 32 --points 32 --sigma 1.0 --evals 40 \\
-        --studies 16 [--checkpoint] --out rows.json
+        --studies 16 [--fit-method map|hmc|nuts|vi] [--checkpoint] \
+        --out rows.json
 
 For each value, the studies (seeds ``--seed-offset`` on) run as lock-step
 campaigns (``parallel/campaign.py``) of at most ``--study-chunk`` studies
@@ -71,6 +72,10 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--meta-fit-chunks", type=int, default=1,
                     help="sequential meta-fit batches, where they divide a "
                          "chunk's studies")
+    ap.add_argument("--fit-method", default="map",
+                    choices=["map", "hmc", "nuts", "vi"],
+                    help="the target fit: MAP, or posterior draws by HMC, "
+                         "NUTS or ADVI with a mixture acquisition")
     ap.add_argument("--mll-method", default="chol",
                     choices=["chol", "sweep", "chol64"])
     ap.add_argument("--route-blocked", action="store_true",
@@ -96,6 +101,7 @@ def main(argv=None) -> dict:
     dtype = torch.float64 if args.f64 else torch.float32
     bench = getattr(benchmarks, args.benchmark)
     cfg = CampaignConfig(n_evaluations=args.evals, noise_std=args.sigma,
+                         fit_method=args.fit_method,
                          mll_method=args.mll_method,
                          route_blocked=args.route_blocked,
                          sweep_variant=args.sweep_variant)
@@ -172,6 +178,7 @@ def main(argv=None) -> dict:
             parts.append(part)
         summary = regret_summary(np.concatenate(parts, axis=0))
         row = {"value": v, "M": M, "N": N, "mll_method": args.mll_method,
+               "fit_method": args.fit_method,
                "avg_cum_regret_mean": summary["mean_cumulative_regret"],
                "avg_cum_regret_sem": summary["avg_cum_regret_sem"],
                "median_final_regret": summary["median_final_regret"],

@@ -5,9 +5,9 @@ and the noise-free objectives.
 
 ``_campaign_routable`` and ``_submit_via_campaign`` route a whole synthetic
 experiment through one lock-step campaign (``parallel/campaign.py``) on a
-single device, with no mesh.  Only MAP fits are routable
-(``fit_method="map"``, the default) until the posterior-marginalized fits
-are ported: the JAX package routes ``hmc``, ``nuts`` and ``vi`` too.
+single device, with no mesh, with the driver's ``fit_method``: ``"map"``
+(the default), ``"hmc"``, ``"nuts"`` or ``"vi"``, the last three with the
+campaign's sampler settings, as the JAX package routes them.
 ``submit``, ``visualize`` and ``main`` come with the experiment layer.  A
 study runs where its optimizer runs: ``ScaMLGPBO`` on ``cuda`` unless
 ``optimizer_kwargs`` name a ``device``.
@@ -34,7 +34,11 @@ from scamlgp_tpu_torch.benchmarking.torch_adapters import (
 )
 from scamlgp_tpu_torch.bo.core import EvaluationSpecification
 from scamlgp_tpu_torch.bo.optimizer import ScaMLGPBO
-from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
+from scamlgp_tpu_torch.parallel.campaign import (
+    FIT_METHODS,
+    CampaignConfig,
+    run_campaign,
+)
 
 
 def run_study(optimizer_cls: Type, optimizer_kwargs: Dict[str, Any],
@@ -82,13 +86,13 @@ def _campaign_routable(optimizer_cls, optimizer_kwargs, benchmark_cls,
                        benchmark_kwargs, noise_spec) -> bool:
     """Whether an experiment can run as one lock-step campaign: a synthetic
     benchmark with a torch adapter, the default ``ScaMLGPBO`` (a
-    ``fit_method`` of ``"map"`` and a ``device`` allowed), no benchmark
-    option but ``n_data_per_task``, and homoscedastic noise on ``loss``
-    or none."""
+    ``fit_method`` the campaign runs and a ``device`` allowed), no
+    benchmark option but ``n_data_per_task``, and homoscedastic noise on
+    ``loss`` or none."""
     return (benchmark_cls.__name__ in TORCH_FUNCTIONS
             and optimizer_cls is ScaMLGPBO
             and set(optimizer_kwargs) <= {"fit_method", "device"}
-            and optimizer_kwargs.get("fit_method", "map") == "map"
+            and optimizer_kwargs.get("fit_method", "map") in FIT_METHODS
             and set(benchmark_kwargs) == {"n_data_per_task"}
             and len(benchmark_kwargs["n_data_per_task"]) > 0
             and (noise_spec is None

@@ -1,5 +1,5 @@
 """Meta-learning Bayesian-optimization driver, the public API
-(``scamlgp_tpu/bo/optimizer.py``, MAP mode).
+(``scamlgp_tpu/bo/optimizer.py``).
 
 ``ScaMLGPBO`` is the reference's sequential driver (its ``optimizer.py:27-185``)
 with the generate/report surface of blackboxopt's single-objective base
@@ -13,9 +13,17 @@ compiles nothing.
 Randomness comes from one CPU ``torch.Generator`` seeded with ``seed``
 (0 when left out), drawn in the order in which the JAX driver splits its
 key: the meta-fit's restart draws at construction (``meta_fit_scamlgp``),
-then each proposal's Sobol seed (``_sobol_seed``) and each refit's restart
-draws (``fit_scamlgp``) as the calls come.  A CPU generator gives the same
-draws whichever device the driver runs on.
+then each proposal's Sobol seed (``_sobol_seed``) and each refit's draws
+as the calls come: the restarts of a MAP fit (``fit_scamlgp``), the chain
+starts and sampler draws of an HMC or NUTS fit
+(``hmc.sample_scamlgp_hyperparameters``), the ADVI draws of a VI fit
+(``vi.fit_scamlgp_vi``).  A CPU generator gives the same draws whichever
+device the driver runs on.
+
+With ``fit_method`` ``"hmc"``, ``"nuts"`` or ``"vi"`` each refit draws
+from the target parameters' posterior, and the acquisition and ``predict``
+use the posterior *mixture* predictive over ``mixture_samples`` draws,
+each draw's acquisition state one batch axis.
 """
 
 from __future__ import annotations
@@ -37,8 +45,11 @@ from scamlgp_tpu_torch.bo.core import (
 )
 from scamlgp_tpu_torch.bo.space import ParameterSpace, impute_nans_with_constant
 from scamlgp_tpu_torch.config import resolve_device
+from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp as gp_lib
+from scamlgp_tpu_torch.models import hmc as hmc_lib
 from scamlgp_tpu_torch.models import scamlgp as model_lib
+from scamlgp_tpu_torch.models import vi as vi_lib
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
@@ -74,6 +85,27 @@ def _acq_value(model: model_lib.ScaMLGP, source_cfg: gp_lib.GPConfig,
         mean, var = model_lib.scamlgp_posterior_diag_cached(
             model, source_cfg, target_cfg, state, x, original_scale=True)
         return af(mean, var, best_f)
+
+    return value
+
+
+def _acq_value_mixture(model: model_lib.ScaMLGP,
+                       source_cfg: gp_lib.GPConfig,
+                       target_cfg: gp_lib.GPConfig,
+                       af: acq_lib.AcquisitionFunction,
+                       states: model_lib.AcqState, best_f) -> Callable:
+    """The acquisition value at points (Q, d) under the hyperparameter
+    posterior mixture (the JAX package's ``_acq_value_hmc``,
+    ``optimizer.py:73-90``): the K draws' cached states are one leading
+    axis of ``states``; their predictives are moment-matched
+    (mean = E[mu], var = E[var + mu^2] - mean^2), then the acquisition is
+    applied once."""
+
+    def value(x):
+        means, variances = model_lib.scamlgp_posterior_diag_cached(
+            model, source_cfg, target_cfg, states, x, original_scale=True)
+        mean, var = hmc_lib.mixture_moments(means, variances)
+        return af(mean, torch.clamp_min(var, 1e-30), best_f)
 
     return value
 
@@ -149,21 +181,29 @@ class ScaMLGPBO(SingleObjectiveOptimizer):
                 package drops to float32 only because the TPU emulates
                 float64, and the card computes float64 natively.
             num_fit_steps: L-BFGS steps of every (re)fit.
-            fit_method: ``"map"``, multi-restart MAP-II as the reference.
-                ``"hmc"``, ``"nuts"`` and ``"vi"`` are not ported yet and
-                raise ``NotImplementedError``.
-            hmc_kwargs, vi_kwargs: accepted for the JAX package's signature.
+            fit_method: ``"map"``, multi-restart MAP-II as the reference;
+                ``"hmc"`` or ``"nuts"``, the target parameters' posterior
+                by HMC or NUTS chains; ``"vi"``, by mean-field ADVI.  The
+                last three acquire under the posterior mixture.
+            hmc_kwargs: overrides of the chains, warmup, samples, leapfrog
+                steps (hmc), maximum depth (nuts) and the number of
+                mixture samples of the acquisition.
+            vi_kwargs: overrides of the ADVI steps, Monte-Carlo draws a
+                step, learning rate and mixture size.
             device: where the model lives and runs; ``cuda`` unless the
                 caller names a device.
         """
         super().__init__(search_space, objective, seed)
-        if fit_method in ("hmc", "nuts", "vi"):
-            raise NotImplementedError(
-                f"fit_method={fit_method!r} is not ported yet (ROADMAP.md, "
-                "queue 1: posterior-marginalized fits); use 'map'")
-        if fit_method != "map":
+        if fit_method not in ("map", "hmc", "nuts", "vi"):
             raise ValueError(f"Unknown fit_method {fit_method!r}")
         self.fit_method = fit_method
+        self.hmc_kwargs = {"num_chains": 2, "num_warmup": 100,
+                           "num_samples": 64, "num_leapfrog": 8,
+                           "max_depth": 6, "mixture_samples": 16,
+                           **(hmc_kwargs or {})}
+        self.vi_kwargs = {"num_steps": 200, "num_mc": 8, "lr": 0.05,
+                          "mixture_samples": 16, **(vi_kwargs or {})}
+        self._hyper_samples = None
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger("scamlgp_tpu_torch")
         self.dtype = torch.float64 if dtype is None else dtype
@@ -228,10 +268,19 @@ class ScaMLGPBO(SingleObjectiveOptimizer):
         best_f = torch.as_tensor(min(finite) if finite else np.inf,
                                  dtype=self.dtype, device=self.device)
         with GLOBAL_TIMER("acquisition", self.device):
-            state = model_lib.scamlgp_acq_state(
-                self.model, self.source_cfg, self.target_cfg)
-            value = _acq_value(self.model, self.source_cfg, self.target_cfg,
-                               self._acquisition(), state, best_f)
+            if self._hyper_samples is not None:
+                states = model_lib.scamlgp_acq_state(
+                    self.model, self.source_cfg, self.target_cfg,
+                    params=self._hyper_samples)
+                value = _acq_value_mixture(
+                    self.model, self.source_cfg, self.target_cfg,
+                    self._acquisition(), states, best_f)
+            else:
+                state = model_lib.scamlgp_acq_state(
+                    self.model, self.source_cfg, self.target_cfg)
+                value = _acq_value(self.model, self.source_cfg,
+                                   self.target_cfg, self._acquisition(),
+                                   state, best_f)
             return acqopt.optimize_acqf(
                 value, self._n_features, sobol_seed, dtype=self.dtype,
                 device=self.device, **self.af_optimizer_kwargs)
@@ -303,21 +352,60 @@ class ScaMLGPBO(SingleObjectiveOptimizer):
             gp=self.model.params.gp)
         self.model = self._build_model(Xf, yf, params=warm)
         with GLOBAL_TIMER("refit", self.device):
+            self._refit(warm)
+
+    def _refit(self, warm: model_lib.TargetParams) -> None:
+        """Refit the current model in the configured fit mode.  A posterior
+        fit keeps its mixture draws (leading axis K) in ``_hyper_samples``
+        and carries the last draw as the model's parameters."""
+        if self.fit_method == "map":
             self.model = model_lib.fit_scamlgp(
                 self.model, self.target_cfg, self._generator,
                 num_restarts=self.num_restarts_log_likelihood,
                 num_steps=self.num_fit_steps)
+            return
+        if self.fit_method == "vi":
+            vk = self.vi_kwargs
+            # draws are i.i.d. from q: no chain interleave or thinning
+            samples, _ = vi_lib.fit_scamlgp_vi(
+                self.model, self.target_cfg, self._generator,
+                num_steps=vk["num_steps"], num_mc=vk["num_mc"], lr=vk["lr"],
+                num_draws=vk["mixture_samples"], init_params=warm)
+        else:
+            hk = self.hmc_kwargs
+            chains, _ = hmc_lib.sample_scamlgp_hyperparameters(
+                self.model, self.target_cfg, self._generator,
+                num_chains=hk["num_chains"], num_warmup=hk["num_warmup"],
+                num_samples=hk["num_samples"],
+                num_leapfrog=hk["num_leapfrog"], sampler=self.fit_method,
+                max_depth=hk["max_depth"])
+            # chains interleaved sample-major, thinned to a fixed mixture
+            # size anchored at the tail
+            samples = hmc_lib.interleave_and_thin(chains,
+                                                  hk["mixture_samples"])
+        self._hyper_samples = samples
+        # the last draw is the warm-start state; predict() uses the whole
+        # mixture (raw-space means are meaningless under the bijections)
+        self.model = self.model._replace(params=fit_lib.tree_map(
+            lambda leaf: leaf[-1], samples))
 
     # ------------------------------------------------------------------
     def predict(self, configurations: Iterable[Dict[str, Any]]):
         """Posterior (mean, std) of the loss at the given configurations, in
-        the objective's original scale and direction."""
+        the objective's original scale and direction.  After a posterior
+        fit this is the mixture predictive over the draws
+        (``hmc.mixture_diag``)."""
         X = np.stack([
             impute_nans_with_constant(self.search_space.to_numerical(c))
             for c in configurations])
         Xq = torch.as_tensor(X, dtype=self.dtype, device=self.device)
-        mean, var = model_lib.scamlgp_posterior_diag(
-            self.model, self.source_cfg, self.target_cfg, Xq)
+        if self._hyper_samples is not None:
+            mean, var = hmc_lib.mixture_diag(
+                self.model, self.source_cfg, self.target_cfg,
+                self._hyper_samples, Xq)
+        else:
+            mean, var = model_lib.scamlgp_posterior_diag(
+                self.model, self.source_cfg, self.target_cfg, Xq)
         mean = mean.detach().cpu().numpy()
         if self.objective.greater_is_better:
             mean = -mean

@@ -1,8 +1,9 @@
 """Carry parameters and state across between the JAX package and the port.
 
 The JAX package's structures (``GPParams``, ``TargetParams``, ``TaskData``,
-``SourceStack``, ``ScaMLGP``) arrive as dicts of numpy arrays keyed by their NamedTuple
-field names, nested for nested structures; the functions here build the
+``SourceStack``, ``ScaMLGP``, ``MeanFieldQ``) arrive as dicts of numpy
+arrays keyed by their NamedTuple field names, nested for nested
+structures; the functions here build the
 port's structures of the same names from them, so that both packages
 compute the same thing.  ``to_numpy_dict`` goes the other way for any
 NamedTuple of arrays.
@@ -16,6 +17,7 @@ import torch
 from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
+from scamlgp_tpu_torch.models import vi
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -28,9 +30,18 @@ def gp_params(d: dict, dtype=torch.float64, device=None) -> gp.GPParams:
 
 
 def target_params(d: dict, dtype=torch.float64, device=None) -> m.TargetParams:
+    """Target parameters with any leading axes: one point, a restart stack,
+    or a sample stack with leading (chains, samples) or (draws) axes."""
     return m.TargetParams(
         raw_weights=_t(d["raw_weights"], dtype, resolve_device(device)),
         gp=gp_params(d["gp"], dtype, device))
+
+
+def mean_field_q(d: dict, dtype=torch.float64, device=None) -> vi.MeanFieldQ:
+    """A fitted mean-field posterior (``models.vi.MeanFieldQ``)."""
+    device = resolve_device(device)
+    return vi.MeanFieldQ(*[_t(d[f], dtype, device)
+                           for f in vi.MeanFieldQ._fields])
 
 
 def task_data(d: dict, dtype=torch.float64, device=None) -> m.TaskData:

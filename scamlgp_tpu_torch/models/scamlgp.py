@@ -408,8 +408,8 @@ def _eval_prior(model: ScaMLGP, source_cfg: gp.GPConfig, P,
         w, model.source.data.std, pruning_threshold).to(P.dtype)
     means, covs = source_predict(model.source, source_cfg, P, full_cov=True)
     w_eff = w * prune
-    mean = torch.sum(means * w_eff[:, None], dim=-2)
-    cov = torch.sum(covs * (w_eff ** 2)[:, None, None], dim=-3)
+    mean = torch.sum(means * w_eff[..., None], dim=-2)
+    cov = torch.sum(covs * (w_eff ** 2)[..., None, None], dim=-3)
     return ((mean - model.out_mean) / model.out_std,
             cov / model.out_std ** 2)
 
@@ -557,12 +557,14 @@ def scamlgp_posterior_diag(model: ScaMLGP, source_cfg: gp.GPConfig,
                            pruning_threshold: float = DEFAULT_PRUNING_THRESHOLD,
                            original_scale: bool = True):
     """Marginal mean and variance at each point of Xq (Q, d), each point
-    conditioned jointly on its own (n+1)-point model, all Q at once."""
+    conditioned jointly on its own (n+1)-point model, all Q at once.  The
+    model's parameters may carry leading axes that broadcast against (Q,),
+    such as (K, 1) for K parameter draws: the result then has theirs."""
     mean, cov = scamlgp_posterior(model, source_cfg, target_cfg,
                                   Xq[:, None, :],
                                   pruning_threshold=pruning_threshold,
                                   original_scale=original_scale)
-    return mean[:, 0], torch.clamp_min(cov[:, 0, 0], 1e-30)
+    return mean[..., 0], torch.clamp_min(cov[..., 0, 0], 1e-30)
 
 
 def meta_fit_scamlgp(meta_xs, meta_ys,

@@ -1,12 +1,20 @@
 """Lock-step BO campaigns: studies as a batch axis
-(``scamlgp_tpu/parallel/campaign.py``, MAP mode, host loop).
+(``scamlgp_tpu/parallel/campaign.py``, host loop).
 
 One call runs S studies of a synthetic benchmark side by side: the meta-fit
-of all S x M source GPs as one batch, then per iteration the target MAP fits
-of all S studies x restarts as one batched L-BFGS, the UCB acquisition
-ascent of all S studies x starts as one batched Adam, and the benchmark
-evaluation.  The host loops over iterations only; with ``study_chunk`` it
-runs the iterations of one chunk of studies after another.
+of all S x M source GPs as one batch, then per iteration the target fits of
+all S studies, the UCB acquisition ascent of all S studies x starts as one
+batched Adam, and the benchmark evaluation.  The host loops over iterations
+only; with ``study_chunk`` it runs the iterations of one chunk of studies
+after another.
+
+The target fit is ``CampaignConfig.fit_method``'s: ``"map"``, the MAP fits
+of all S studies x restarts as one batched L-BFGS; ``"hmc"`` or
+``"nuts"``, the posterior draws of all S studies x chains as one batch of
+chains (``models/hmc.py``); ``"vi"``, mean-field ADVI of all S studies,
+their S x ``vi_mc`` Monte-Carlo draws one log-density call a step
+(``models/vi.py``).  A posterior fit's acquisition moment-matches the
+mixture of ``mixture_samples`` draws a study, then applies UCB once.
 
 With ``mll_method="sweep"`` every fit objective with N <= 128 goes through
 the hand-written sweep kernel of step scheme ``sweep_variant``
@@ -20,7 +28,8 @@ assembles and factors every fit objective's system in float64
 The stages are timed in ``utils.profiling.GLOBAL_TIMER`` under the
 reference's names (``campaign_stage_inputs``, ``campaign_meta_fit``,
 ``campaign_bo_loop``, ``campaign_iteration``) and, within an iteration,
-``iteration_draws``, ``iteration_fit_target``, ``iteration_acq_state``,
+``iteration_draws``, ``iteration_fit_target`` (a MAP fit) or
+``iteration_sample_target`` (a posterior fit), ``iteration_acq_state``,
 ``iteration_propose`` and ``iteration_benchmark``; checkpoint writes are
 ``campaign_checkpoint``.  Each stage synchronizes the card before its
 clock is read.
@@ -31,9 +40,9 @@ device.  The meta-fit's restarts come from one generator seeded with
 ``iteration_generator(seed, i)``, seeded from ``(seed, i)`` alone: a study
 chunk takes its rows of the full draw, so chunking does not change what a
 study sees, and a resumed campaign needs no generator state.
-``iteration_draws`` makes one iteration's draws and ``run_iteration``
-takes them as arguments, so tests can hand the JAX package and the port
-the same draws.
+``iteration_draws`` makes one iteration's draws (a posterior fit's chain
+starts and sampler draws among them) and ``run_iteration`` takes them as
+arguments, so tests can hand the JAX package and the port the same draws.
 """
 
 from __future__ import annotations
@@ -50,10 +59,15 @@ from scamlgp_tpu_torch.bo.optimize import ascend, top_starts
 from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
+from scamlgp_tpu_torch.models import hmc as hmc_lib
 from scamlgp_tpu_torch.models import scamlgp as m
+from scamlgp_tpu_torch.models import vi as vi_lib
 from scamlgp_tpu_torch.ops import inverse_mll
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
+
+
+FIT_METHODS = ("map", "hmc", "nuts", "vi")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +75,7 @@ class CampaignConfig:
     n_evaluations: int = 40
     noise_std: float = 1.0
     ucb_beta: float = 9.0                  # utils.py:215-224
-    fit_method: str = "map"                # only "map" is ported
+    fit_method: str = "map"                # "map" | "hmc" | "nuts" | "vi"
     fit_steps: int = 60                    # L-BFGS iterations per restart
     fit_restarts: int = 5                  # prior-sampled, on top of warm
     acq_raw_samples: int = 256
@@ -72,16 +86,23 @@ class CampaignConfig:
     route_blocked: bool = False            # sweep: blocked kernel, mid N
     sweep_variant: str = "select"          # sweep: step scheme, N <= 128
     pruning_threshold: float = 1e-3        # model.py:226
-    # fields of the posterior-marginalized fits, not ported yet
+    # fit_method in {"hmc", "nuts"}: the posterior of every refit; the
+    # acquisition marginalizes over `mixture_samples` draws
     hmc_chains: int = 2
     hmc_warmup: int = 64
     hmc_samples: int = 16
-    hmc_leapfrog: int = 12
-    hmc_max_depth: int = 6
+    hmc_leapfrog: int = 12                 # hmc only
+    hmc_max_depth: int = 6                 # nuts only
     mixture_samples: int = 8
+    # fit_method == "vi": mean-field ADVI; the mixture's draws come from q
     vi_steps: int = 200
     vi_mc: int = 8
     vi_lr: float = 0.05
+
+    def __post_init__(self):
+        if self.fit_method not in FIT_METHODS:
+            raise ValueError(f"Unknown fit_method {self.fit_method!r} "
+                             f"({' | '.join(FIT_METHODS)})")
 
 
 class CampaignResult(NamedTuple):
@@ -100,6 +121,11 @@ class CampaignResult(NamedTuple):
     #                              study's predictions are then not finite)
     mask: torch.Tensor     # (S, E) 1 where the evaluation is filled: all
     #                        1 unless ``stop_after`` ended the run early
+    samples: Optional[m.TargetParams] = None  # a posterior fit's mixture
+    #                        draws (S, mixture_samples, ...) of the last
+    #                        iteration this call ran (NaN for studies it
+    #                        ran none of)
+    stack: Optional[m.SourceStack] = None     # the fitted source GPs
 
 
 class CampaignState(NamedTuple):
@@ -121,11 +147,17 @@ class CampaignState(NamedTuple):
 
 
 class IterationDraws(NamedTuple):
-    """The random inputs of one lock-step iteration."""
+    """The random inputs of one lock-step iteration, study axis first."""
 
-    restarts: m.TargetParams   # (S, fit_restarts, ...) prior draws
+    restarts: Optional[m.TargetParams]  # map: (S, fit_restarts, ...) prior
+    #                                     draws
     raw: torch.Tensor          # (S, acq_raw_samples, d) uniform candidates
     noise: torch.Tensor        # (S,) standard normal observation noise
+    chains: Optional[m.TargetParams] = None  # hmc, nuts: (S, hmc_chains,
+    #                                          ...) prior-drawn chain starts
+    sampler: Optional[tuple] = None  # hmc: HMCDraws, nuts: NUTSDraws, each
+    #                                  (S, hmc_chains, T, ...); vi: VIDraws
+    #                                  (S, ...)
 
 
 def iteration_generator(seed: int, i: int) -> torch.Generator:
@@ -136,22 +168,46 @@ def iteration_generator(seed: int, i: int) -> torch.Generator:
 
 
 def _rows(tree, c0: int, c1: int):
-    """Rows c0:c1 of every leaf (the study axis) of a NamedTuple tree."""
-    return fit_lib.tree_map(lambda leaf: leaf[c0:c1], tree)
+    """Rows c0:c1 of every leaf (the study axis) of a NamedTuple tree;
+    absent (None) members stay absent."""
+    return fit_lib.tree_map(
+        lambda leaf: None if leaf is None else leaf[c0:c1], tree)
 
 
 def iteration_draws(generator: torch.Generator, cfg: CampaignConfig,
                     target_cfg: gp.GPConfig, S: int, M: int, d: int,
                     dtype, device) -> IterationDraws:
-    restarts = m.sample_target_params(target_cfg, generator, M, d, dtype,
-                                      batch_shape=(S, cfg.fit_restarts))
+    """One iteration's draws for all S studies, in this order: the target
+    fit's (a MAP fit's restarts; the chain starts, then the HMC or NUTS
+    draws; the ADVI draws), the raw candidates, the noise."""
+    def put(tree):
+        return fit_lib.tree_map(lambda leaf: leaf.to(device), tree)
+
+    restarts = chains = sampler = None
+    D = M + d + 2
+    if cfg.fit_method == "map":
+        restarts = put(m.sample_target_params(
+            target_cfg, generator, M, d, dtype,
+            batch_shape=(S, cfg.fit_restarts)))
+    elif cfg.fit_method in ("hmc", "nuts"):
+        batch = (S, cfg.hmc_chains)
+        T = cfg.hmc_warmup + cfg.hmc_samples
+        chains = put(m.sample_target_params(target_cfg, generator, M, d,
+                                            dtype, batch_shape=batch))
+        sampler = (hmc_lib.nuts_draws(generator, batch, T, D,
+                                      cfg.hmc_max_depth, dtype, device)
+                   if cfg.fit_method == "nuts" else
+                   hmc_lib.hmc_draws(generator, batch, T, D, dtype, device))
+    else:
+        sampler = vi_lib.vi_draws(generator, (S,), cfg.vi_steps, cfg.vi_mc,
+                                  cfg.mixture_samples, D, dtype, device)
     raw = torch.rand((S, cfg.acq_raw_samples, d), generator=generator,
                      dtype=dtype, device=generator.device)
     noise = torch.randn((S,), generator=generator, dtype=dtype,
                         device=generator.device)
-    return IterationDraws(
-        restarts=fit_lib.tree_map(lambda leaf: leaf.to(device), restarts),
-        raw=raw.to(device), noise=noise.to(device))
+    return IterationDraws(restarts=restarts, raw=raw.to(device),
+                          noise=noise.to(device), chains=chains,
+                          sampler=sampler)
 
 
 def _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf, ybuf, mask,
@@ -170,16 +226,16 @@ def _study_posterior_diag_fast(stack, source_cfg, target_cfg, acq_state,
                                        acq_state, Xbuf, Xq)
 
 
-def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
-                out_mean, out_std, restarts: m.TargetParams,
-                cfg: CampaignConfig) -> m.TargetParams:
-    """Warm + prior-restart L-BFGS MAP fit of the target parameters of every
-    study (training-mode cached source moments).  ``restarts`` carries the
-    prior draws with leading (..., fit_restarts) axes."""
+def target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf, mask,
+                     out_mean, out_std, cfg: CampaignConfig) -> Callable:
+    """The training-mode MAP objective of every study's target parameters
+    (cached source moments), a function of parameters with leading
+    (..., R) axes, R restarts, chains or Monte-Carlo draws a study, to
+    values (..., R).  Its MLL takes ``cfg``'s route (``mll_method``,
+    ``route_blocked``, ``sweep_variant``)."""
     means, covs = m.source_predict(stack, source_cfg, Xbuf, full_cov=True)
     om, os_ = out_mean[..., None], out_std[..., None]
     y_std = (ybuf - om) / os_ * mask
-    batch_ndim = out_mean.ndim
     # one axis for the restarts, in front of the data's last axes
     Xr, yr, maskr = Xbuf.unsqueeze(-3), y_std.unsqueeze(-2), mask.unsqueeze(-2)
     omr, osr = om[..., None], os_[..., None]
@@ -197,22 +253,96 @@ def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
                                 route_blocked=cfg.route_blocked,
                                 sweep_variant=cfg.sweep_variant)
 
+    return objective
+
+
+def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
+                out_mean, out_std, restarts: m.TargetParams,
+                cfg: CampaignConfig) -> m.TargetParams:
+    """Warm + prior-restart L-BFGS MAP fit of the target parameters of every
+    study (training-mode cached source moments).  ``restarts`` carries the
+    prior draws with leading (..., fit_restarts) axes."""
+    objective = target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf,
+                                 mask, out_mean, out_std, cfg)
+    batch_ndim = out_mean.ndim
     stack0 = fit_lib.stack_restarts(params_warm, restarts, batch_ndim)
     return fit_lib.fit_map_restarts(objective, stack0, num_steps=cfg.fit_steps,
                                     batch_ndim=batch_ndim).params
 
 
-def _propose(stack, source_cfg, target_cfg, state, Xbuf, raw,
-             cfg: CampaignConfig) -> torch.Tensor:
-    """UCB(beta, minimize) ascent over the unit cube for every study: the
-    raw sweep picks the top-k starts, then Adam ascends from each."""
+def _sample_target_hmc(stack, source_cfg, target_cfg, Xbuf, ybuf, mask,
+                       out_mean, out_std, draws: IterationDraws,
+                       cfg: CampaignConfig) -> m.TargetParams:
+    """Posterior draws of the target parameters of every study by HMC or
+    NUTS chains (``cfg.fit_method``), all S x ``hmc_chains`` chains one
+    batch, from ``draws.chains``' prior-drawn starts, over the objective of
+    ``_fit_target``.  Returns draws (S, mixture_samples, ...): the chains
+    interleaved sample-major and thinned from the tail."""
+    objective = target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf,
+                                 mask, out_mean, out_std, cfg)
+    sampler = hmc_lib.nuts if cfg.fit_method == "nuts" else hmc_lib.hmc
+    extra = ({"max_depth": cfg.hmc_max_depth} if cfg.fit_method == "nuts"
+             else {"num_leapfrog": cfg.hmc_leapfrog})
+    samples, _ = sampler(lambda p: -objective(p), draws.chains,
+                         draws.sampler, num_warmup=cfg.hmc_warmup,
+                         num_samples=cfg.hmc_samples, batch_ndim=2, **extra)
+    return hmc_lib.interleave_and_thin(samples, cfg.mixture_samples,
+                                       batch_ndim=1)
+
+
+def _sample_target_vi(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf,
+                      mask, out_mean, out_std, draws: IterationDraws,
+                      cfg: CampaignConfig) -> m.TargetParams:
+    """Posterior draws of the target parameters of every study by mean-field
+    ADVI from ``params_warm``, over the objective of ``_fit_target``; each
+    step evaluates all S x ``vi_mc`` draws at once.  Returns draws
+    (S, mixture_samples, ...) from each study's q."""
+    objective = target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf,
+                                 mask, out_mean, out_std, cfg)
+    q, unflatten, _ = vi_lib.advi(lambda p: -objective(p), params_warm,
+                                  draws.sampler.eps, lr=cfg.vi_lr,
+                                  batch_ndim=1)
+    return vi_lib.sample_q(q, unflatten, draws.sampler.sample)
+
+
+def _with_draw_axis(stack, Xbuf, ybuf, mask, out_mean, out_std):
+    """The study's arguments of the acquisition state with a unit axis after
+    the study axis, against which a posterior fit's draws (S, K) broadcast:
+    what does not depend on the draw is computed once a study."""
+    return (fit_lib.tree_map(lambda leaf: leaf.unsqueeze(1), stack),
+            Xbuf.unsqueeze(1), ybuf.unsqueeze(1), mask.unsqueeze(1),
+            out_mean.unsqueeze(1), out_std.unsqueeze(1))
+
+
+def _acquisition(stack, source_cfg, target_cfg, state, Xbuf,
+                 cfg: CampaignConfig, mixture: bool = False) -> Callable:
+    """UCB(beta, minimize) of every study at candidates x (S, Q, d), to
+    values (S, Q).  With ``mixture``, ``state`` holds a posterior fit's
+    draws on its second axis (``stack`` and ``Xbuf`` with the unit axis of
+    ``_with_draw_axis``): each candidate's predictive is the draws'
+    moment-matched mixture (the sequential driver's
+    ``_acq_value_mixture``)."""
     ucb = UpperConfidenceBound(beta=cfg.ucb_beta)
 
     def acq(x):
-        mu, var = _study_posterior_diag_fast(stack, source_cfg, target_cfg,
-                                             state, Xbuf, x)
+        if mixture:
+            mus, vars_ = _study_posterior_diag_fast(
+                stack, source_cfg, target_cfg, state, Xbuf, x.unsqueeze(1))
+            mu, var = hmc_lib.mixture_moments(mus, vars_, dim=1)
+        else:
+            mu, var = _study_posterior_diag_fast(
+                stack, source_cfg, target_cfg, state, Xbuf, x)
         return ucb(mu, var)
 
+    return acq
+
+
+def _propose(stack, source_cfg, target_cfg, state, Xbuf, raw,
+             cfg: CampaignConfig, mixture: bool = False) -> torch.Tensor:
+    """Ascent of ``_acquisition`` over the unit cube for every study: the
+    raw sweep picks the top-k starts, then Adam ascends from each."""
+    acq = _acquisition(stack, source_cfg, target_cfg, state, Xbuf, cfg,
+                       mixture)
     starts = top_starts(acq, raw, cfg.acq_topk)
     zs, negv = ascend(lambda x: -acq(x), starts, cfg.acq_steps, cfg.acq_lr)
     best = torch.argmin(torch.where(torch.isfinite(negv), negv, torch.inf),
@@ -227,24 +357,44 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
                   draws: IterationDraws, i: int, source_cfg: gp.GPConfig,
                   target_cfg: gp.GPConfig, cfg: CampaignConfig):
     """One lock-step BO iteration of every study: refit, propose, evaluate.
-    Returns the updated (Xbuf, ybuf, yclean, mask, params)."""
+    Returns the updated (Xbuf, ybuf, yclean, mask, params) and, after a
+    posterior fit, its mixture draws (S, mixture_samples, ...) (else None);
+    ``params`` is then the last draw of each study."""
     S, M = stack.data.X.shape[:2]
     dtype, dev = Xbuf.dtype, Xbuf.device
-    with GLOBAL_TIMER("iteration_fit_target", dev):
+    args = (stack, source_cfg, target_cfg)
+    samples = None
+    mixture = cfg.fit_method != "map"
+    with GLOBAL_TIMER("iteration_sample_target" if mixture
+                      else "iteration_fit_target", dev):
         out_mean, out_std = m.output_normalizer(stack, ybuf, mask)
         warm = m.TargetParams(
             raw_weights=m.weights_inverse(torch.full(
                 (S, M), 1.0 / M, dtype=dtype, device=dev)),
             gp=params.gp)
-        params = _fit_target(stack, source_cfg, target_cfg, warm, Xbuf, ybuf,
-                             mask, out_mean, out_std, draws.restarts, cfg)
+        if cfg.fit_method == "map":
+            params = _fit_target(*args, warm, Xbuf, ybuf, mask, out_mean,
+                                 out_std, draws.restarts, cfg)
+        else:
+            if cfg.fit_method == "vi":
+                samples = _sample_target_vi(*args, warm, Xbuf, ybuf, mask,
+                                            out_mean, out_std, draws, cfg)
+            else:
+                samples = _sample_target_hmc(*args, Xbuf, ybuf, mask,
+                                             out_mean, out_std, draws, cfg)
+            # the last draw is carried into the next iteration's warm start
+            params = fit_lib.tree_map(lambda leaf: leaf[:, -1], samples)
+    # a posterior fit's draws (S, K) broadcast against a unit axis of the
+    # study's arguments
+    parts = (stack, Xbuf, ybuf, mask, out_mean, out_std)
+    stack_a, Xbuf_a, *rest = _with_draw_axis(*parts) if mixture else parts
     with GLOBAL_TIMER("iteration_acq_state", dev):
-        state = _study_acq_state(stack, source_cfg, target_cfg, params, Xbuf,
-                                 ybuf, mask, out_mean, out_std,
-                                 cfg.pruning_threshold)
+        state = _study_acq_state(stack_a, source_cfg, target_cfg,
+                                 samples if mixture else params, Xbuf_a,
+                                 *rest, cfg.pruning_threshold)
     with GLOBAL_TIMER("iteration_propose", dev):
-        x_star = _propose(stack, source_cfg, target_cfg, state, Xbuf,
-                          draws.raw, cfg)
+        x_star = _propose(stack_a, source_cfg, target_cfg, state, Xbuf_a,
+                          draws.raw, cfg, mixture=mixture)
     with GLOBAL_TIMER("iteration_benchmark", dev):
         y_clean = benchmark_fn(x_star, task_params).to(dtype)
     y_noisy = y_clean + cfg.noise_std * draws.noise
@@ -253,7 +403,7 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
     ybuf[:, i] = y_noisy
     yclean[:, i] = y_clean
     mask[:, i] = 1.0
-    return Xbuf, ybuf, yclean, mask, params
+    return Xbuf, ybuf, yclean, mask, params, samples
 
 
 def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
@@ -297,9 +447,6 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             same ``study_chunk``.
         device: where the campaign runs; ``cuda`` when left out.
     """
-    if cfg.fit_method != "map":
-        raise NotImplementedError(
-            f"fit_method={cfg.fit_method!r}: only 'map' is ported")
     if loop != "host":
         raise NotImplementedError(f"loop={loop!r}: only 'host' is ported")
     if mesh is not None:
@@ -397,6 +544,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
               if chunk else [(0, S)])
     iteration_seconds = []
     stopped = False
+    samples = None
     with GLOBAL_TIMER("campaign_bo_loop", device):
         for c0, c1 in bounds:
             d_c = done[c0:c1]
@@ -421,7 +569,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                         draws = _rows(iteration_draws(
                             iteration_generator(seed, i), cfg, target_cfg, S,
                             M, d, dtype, device), c0, c1)
-                    Xb, yb, yc, mk, pr = run_iteration(
+                    Xb, yb, yc, mk, pr, smp = run_iteration(
                         benchmark_fn, st_c, tp_c, Xb, yb, yc, mk, pr, draws,
                         i, source_cfg, target_cfg, cfg)
                 iteration_seconds.append(time.perf_counter() - t0)
@@ -437,6 +585,14 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                         full[c0:c1] = part
                     if checkpoint_path is not None:
                         save()
+                if last and smp is not None:
+                    if samples is None:   # NaN for studies not run here
+                        samples = fit_lib.tree_map(
+                            lambda leaf: leaf.new_full(
+                                (S,) + leaf.shape[1:], torch.nan), smp)
+                    for full, part in zip(fit_lib.tree_leaves(samples),
+                                          fit_lib.tree_leaves(smp)):
+                        full[c0:c1] = part
                 if stopped:
                     break
             if stopped:
@@ -448,7 +604,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                                         zip(counts, counts[1:])]
                                     for k in counts[0]},
                           nonfinite_source_tasks=int(nonfinite.sum()),
-                          mask=mask)
+                          mask=mask, samples=samples, stack=stack)
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

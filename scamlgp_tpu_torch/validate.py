@@ -3,7 +3,8 @@ with the JAX package's committed regret rows.
 
     python -m scamlgp_tpu_torch.validate [--benchmark Branin] [--tasks 8]
         [--points 32] [--sigma 1.0] [--studies 128] [--evals 40]
-        [--mll-method sweep|chol|chol64] [--route-blocked]
+        [--mll-method sweep|chol|chol64] [--fit-method map|hmc|nuts|vi]
+        [--route-blocked]
         [--sweep-variant select] [--optimum-method shgo] [--seed 0]
         [--study-chunk K] [--checkpoint PATH] [--stop-after N]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
@@ -23,8 +24,13 @@ Hartmann6D --points 128 --sigma 0.1 --evals 80 --optimum-method device``;
 ``--sweep-variant fused`` runs it as the reference's
 ``SCAMLGP_SWEEP_STEP=fused``.  The many-task configuration of BASELINE.json
 (config 4) is ``--benchmark Quadratic --tasks 128 --points 32 --sigma 0.05
---studies 4 --evals 16``.  Always the CampaignConfig defaults and
-float32.  Prints one JSON line with the median simple regret per
+--studies 4 --evals 16``.  ``--fit-method hmc|nuts|vi`` draws each
+refit from the target parameters' posterior (the CampaignConfig sampler
+defaults) and acquires under the draws' mixture: the committed rows are
+``docs/branin_t8_p32_n1_{hmc,vi}_regrets_tpu_16studies.npy`` (``--studies
+16``) and, with NUTS, ``docs/hm6_t8_p128_n01_nuts_regrets_tpu_16studies.npy``
+(the Hartmann6D cell, ``--studies 16``).  Always the CampaignConfig
+defaults and float32.  Prints one JSON line with the median simple regret per
 iteration, the timings (and the campaign's stages from
 ``utils.profiling.GLOBAL_TIMER``), each kernel's launches, and the card's
 name and power limit.
@@ -44,7 +50,8 @@ the Cholesky route with the driver's defaults (5 restarts, 60 L-BFGS
 steps, UCB(9), 1024 raw samples, 8 starts x 50 ascent steps).  Its regret
 is the best noise-free loss so far minus the study's optimum; its JSON
 line holds the same summary, with the driver's stages (``meta_fit``,
-``refit``, ``acquisition``) and each study's seconds.  The campaign's
+``refit``, ``acquisition``) and each study's seconds.  ``--fit-method``
+applies to it too (the driver's own sampler defaults).  The campaign's
 ``--mll-method``, ``--route-blocked``, ``--sweep-variant`` and
 ``--optimum-method`` do not apply to it.
 """
@@ -116,6 +123,9 @@ def compare(ref: np.ndarray, reg: np.ndarray, seed: int = 0,
            for _ in range(draws)] if S <= len(ref) else []
     return {"ref_studies": int(ref.shape[0]),
             "ref_median_final_regret": float(np.median(ref[:, -1])),
+            "ref_final_regret_25_75": [float(v) for v in
+                                       np.percentile(ref[:, -1], [25, 75])],
+            "ref_median_first_regret": float(np.median(ref[:, 0])),
             "ref_mean_cumulative_regret": float(cum.mean()),
             "ref_avg_cum_regret_sem": float(cum.std(ddof=1)
                                             / np.sqrt(len(cum))),
@@ -152,6 +162,8 @@ def run_sequential(args, device: torch.device):
     (S, E) regrets)."""
     bench = getattr(benchmarks, args.benchmark)
     kwargs = {} if args.device is None else {"device": args.device}
+    if args.fit_method != "map":
+        kwargs["fit_method"] = args.fit_method
     GLOBAL_TIMER.reset()
     regrets, study_s = [], []
     t0 = time.perf_counter()
@@ -169,7 +181,8 @@ def run_sequential(args, device: torch.device):
         "tasks": args.tasks, "points": args.points, "sigma": args.sigma,
         "studies": args.studies, "evals": args.evals,
         "study_seeds": [args.seed, args.seed + args.studies - 1],
-        "dtype": "float64", "device": str(device), "card": _card(device),
+        "fit_method": args.fit_method, "dtype": "float64",
+        "device": str(device), "card": _card(device),
         "run_s": time.perf_counter() - t0, "study_s": study_s,
         "stages": GLOBAL_TIMER.report(), **regret_summary(reg),
     }
@@ -190,6 +203,10 @@ def main(argv=None) -> dict:
                     choices=["chol", "sweep", "chol64"],
                     help="the fit objectives' MLL route; chol64 assembles "
                          "and factors each system in float64")
+    ap.add_argument("--fit-method", default="map",
+                    choices=["map", "hmc", "nuts", "vi"],
+                    help="the target fit: MAP, or posterior draws by HMC, "
+                         "NUTS or ADVI with a mixture acquisition")
     ap.add_argument("--route-blocked", action="store_true",
                     help="let 192 <= N <= 1024 take the blocked-Cholesky "
                          "kernels (with --mll-method sweep)")
@@ -233,6 +250,7 @@ def main(argv=None) -> dict:
         optima = pinned_optima(args.checkpoint, optima)
     setup_s = time.perf_counter() - t0
     cfg = CampaignConfig(n_evaluations=args.evals, noise_std=args.sigma,
+                         fit_method=args.fit_method,
                          mll_method=args.mll_method,
                          route_blocked=args.route_blocked,
                          sweep_variant=args.sweep_variant)
@@ -254,7 +272,8 @@ def main(argv=None) -> dict:
         "points": args.points, "sigma": args.sigma,
         "studies": args.studies, "evals": args.evals,
         "completed_iterations": completed,
-        "dtype": "float32", "mll_method": args.mll_method,
+        "dtype": "float32", "fit_method": args.fit_method,
+        "mll_method": args.mll_method,
         "route_blocked": args.route_blocked,
         "sweep_variant": args.sweep_variant,
         "optimum_method": args.optimum_method,

@@ -5,7 +5,12 @@ From the same source stack, buffers, restart draws and raw candidates, the
 JAX module-level ``_fit_target``, ``_study_acq_state`` and
 ``_study_posterior_diag_fast`` (vmapped over studies, as the reference
 campaign runs them) and the reference's UCB ascent give the same target
-parameters, posterior and proposal as the port, at rtol 1e-6.
+parameters, posterior and proposal as the port, at rtol 1e-6.  With a
+posterior fit (``fit_method`` hmc, nuts, vi), the reference's
+``_sample_target_hmc`` / ``_sample_target_vi`` on per-study fit keys and
+its mixture UCB give the same mixture draws and acquisition values, at the
+sampler tests' rtol 1e-8, and the same proposal as the port's
+``run_iteration`` on draws that replay those keys.
 
 The fits run 12 L-BFGS steps: on these nearly flat target objectives,
 longer runs amplify roundoff-level differences between two correct
@@ -34,6 +39,7 @@ from scamlgp_tpu_torch.models import fit as tfit
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.parallel import campaign as tc
+from tests import torch_posterior_case as case
 
 F64 = torch.float64
 S, M, NPTS, E = 2, 2, 8, 4
@@ -147,6 +153,12 @@ def _jax_proposal(jstack, state, Xbuf, raw, cfg):
         return (-mu[0] + jnp.sqrt(cfg.ucb_beta)
                 * jnp.sqrt(jnp.maximum(var[0], 1e-30)))
 
+    return _jax_ascent(acq, raw, cfg)
+
+
+def _jax_ascent(acq, raw, cfg):
+    """The reference campaign's raw sweep and Adam ascent of ``acq`` (a
+    function of one point), for one study: (raw values, proposal)."""
     raw_vals = jax.vmap(acq)(raw)
     top = jax.lax.top_k(jnp.where(jnp.isfinite(raw_vals), raw_vals,
                                   -jnp.inf), cfg.acq_topk)[1]
@@ -251,9 +263,7 @@ def test_simple_regret_matches():
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(loop="device"),
-                                    dict(cfg=tc.CampaignConfig(
-                                        fit_method="hmc"))])
+                                    dict(loop="device")])
 def test_unported_options_raise(inputs, kwargs):
     _, (fn, tp, md, _) = inputs
     with pytest.raises(NotImplementedError):
@@ -268,3 +278,126 @@ def test_entry_points_default_to_cuda(inputs):
         tc.run_campaign(fn, tp, md)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ta.campaign_inputs_from_benchmark(TBranin, [4], [0], noise_std=0.1)
+
+
+# ---------------------------------------------------------------------------
+# one lock-step iteration with a posterior fit (fit_method hmc, nuts, vi)
+# ---------------------------------------------------------------------------
+
+#: small samplers: 2 chains x (6 warmup + 4 samples), 3 leapfrog steps or
+#: depth 3; ADVI 10 steps x 4 draws; a 4-draw mixture of 8 chain draws
+POST = dict(CFG, hmc_chains=2, hmc_warmup=6, hmc_samples=4, hmc_leapfrog=3,
+            hmc_max_depth=3, mixture_samples=4, vi_steps=10, vi_mc=4)
+POST_RTOL = 1e-8   # the sampler tests' (tests/test_torch_hmc.py)
+
+
+def _jax_posterior_iteration(jstack, warm, Xbuf, ybuf, mask, keys, raw,
+                             fit_method):
+    """The reference's posterior refit of every study from its fit key
+    (``_sample_target_hmc`` / ``_sample_target_vi``), the draws' acquisition
+    states, and the mixture UCB's raw sweep and ascent (``study_iteration``,
+    ``campaign.py:542-570``), vmapped over studies."""
+    scfg, tcfg = jgp.source_gp_config(), jgp.target_gp_config()
+    cfg = jc.CampaignConfig(fit_method=fit_method, **POST)
+    om, os_ = jax.vmap(jc._out_transform)(jstack, ybuf, mask)
+
+    def one(st, w, xb, yb, mk, o, s, k, r):
+        if fit_method == "vi":
+            samples = jc._sample_target_vi(st, scfg, tcfg, w, xb, yb, mk, o,
+                                           s, k, cfg)
+        else:
+            samples = jc._sample_target_hmc(st, scfg, tcfg, xb, yb, mk, o, s,
+                                            k, cfg)
+        states = jax.vmap(lambda p: jc._study_acq_state(
+            st, scfg, tcfg, p, xb, yb, mk, o, s, cfg.pruning_threshold))(
+                samples)
+
+        def acq(x):
+            def draw(state):
+                mu, var = jc._study_posterior_diag_fast(st, scfg, tcfg, state,
+                                                        xb, x[None])
+                return mu[0], var[0]
+
+            mus, vars_ = jax.vmap(draw)(states)
+            mean = jnp.mean(mus)
+            var = jnp.mean(vars_ + mus ** 2) - mean ** 2
+            return (-mean + jnp.sqrt(cfg.ucb_beta)
+                    * jnp.sqrt(jnp.maximum(var, 1e-30)))
+
+        return (samples,) + _jax_ascent(acq, r, cfg)
+
+    samples, vals, x = jax.vmap(one)(jstack, warm, Xbuf, ybuf, mask, om, os_,
+                                     keys, raw)
+    return dict(samples=samples, ucb=vals, x=x)
+
+
+def _replayed_draws(keys, raw, fit_method, d: int) -> tc.IterationDraws:
+    """The port's iteration draws that replay the reference's fit keys: each
+    study's chain starts and sampler draws (``campaign.py:202-205``), or its
+    ADVI and mixture draws (``campaign.py:256-260``)."""
+    cfg = tc.CampaignConfig(fit_method=fit_method, **POST)
+    D = M + d + 2
+    chains = None
+    if fit_method == "vi":
+        per = [case.vi_draws(k, cfg.vi_steps, cfg.vi_mc, cfg.mixture_samples,
+                             D) for k in keys]
+        sampler = tfit.tree_map(lambda *ls: torch.stack(ls), *per)
+    else:
+        C, T_ = cfg.hmc_chains, cfg.hmc_warmup + cfg.hmc_samples
+        k_init, k_run = (k.reshape((S * C,) + k.shape[2:]) for k in
+                         jax.vmap(lambda k: case.chain_keys(k, C))(keys))
+        _, starts = case.target_inits(k_init, jgp.target_gp_config(), M, d)
+        flat = (case.nuts_draws(k_run, T_, D, cfg.hmc_max_depth)
+                if fit_method == "nuts" else case.hmc_draws(k_run, T_, D))
+        chains, sampler = (tfit.tree_map(
+            lambda leaf: leaf.reshape((S, C) + leaf.shape[1:]), tree)
+            for tree in (starts, flat))
+    return tc.IterationDraws(restarts=None, raw=T(raw),
+                             noise=torch.zeros(S, dtype=F64), chains=chains,
+                             sampler=sampler)
+
+
+@pytest.mark.parametrize("method", ["chol", "sweep"])
+@pytest.mark.parametrize("fit_method", ["hmc", "nuts", "vi"])
+def test_one_posterior_iteration_matches(inputs, iteration, fit_method,
+                                         method):
+    """Iteration 2 (two points seen) through the port's ``run_iteration``
+    on draws that replay the reference's fit keys: the mixture draws (the
+    chains interleaved sample-major and thinned from the tail, or ADVI's
+    q draws), the carried last draw, the mixture UCB at the raw candidates
+    and the proposal against the reference's, at the sampler tests' rtol
+    (the proposal at the MAP iteration's)."""
+    it = iteration
+    _, (tfn, ttp, _, _) = inputs
+    keys = jax.random.split(jax.random.PRNGKey(7), S)
+    Xbuf, ybuf, mask = it["bufs"][2]
+    ref = jax.jit(_jax_posterior_iteration, static_argnums=7)(
+        it["jstack"], it["warm"], *(jnp.asarray(a) for a in it["bufs"][2]),
+        keys, it["raw"], fit_method)
+    scfg_t, tcfg_t = tgp.source_gp_config(), tgp.target_gp_config()
+    cfg_t = tc.CampaignConfig(fit_method=fit_method, mll_method=method,
+                              **POST)
+    tstack = convert.source_stack(convert.to_numpy_dict(it["jstack"]),
+                                  device="cpu")
+    warm = convert.target_params(convert.to_numpy_dict(it["warm"]),
+                                 device="cpu")
+    draws = _replayed_draws(keys, it["raw"], fit_method, 2)
+    tX, ty, tmk = T(Xbuf), T(ybuf), T(mask)
+    out = tc.run_iteration(tfn, tstack, ttp, tX, ty, torch.zeros_like(ty),
+                           tmk, warm, draws, 2, scfg_t, tcfg_t, cfg_t)
+    params, samples = out[4], out[5]
+    jsamples = convert.target_params(convert.to_numpy_dict(ref["samples"]),
+                                     device="cpu")
+    assert samples.raw_weights.shape == (S, POST["mixture_samples"], M)
+    close(tfit.flatten(samples, 2), tfit.flatten(jsamples, 2),
+          rtol=POST_RTOL, atol=1e-12)
+    close(tfit.flatten(params, 1), tfit.flatten(jsamples, 2)[:, -1],
+          rtol=POST_RTOL, atol=1e-12)
+    om, os_ = tm.output_normalizer(tstack, ty, tmk)
+    stack_a, X_a, *rest = tc._with_draw_axis(tstack, tX, ty, tmk, om, os_)
+    state = tc._study_acq_state(stack_a, scfg_t, tcfg_t, samples, X_a, *rest,
+                                cfg_t.pruning_threshold)
+    ucb = tc._acquisition(stack_a, scfg_t, tcfg_t, state, X_a, cfg_t,
+                          mixture=True)(T(it["raw"]))
+    close(ucb, ref["ucb"], rtol=POST_RTOL, atol=1e-12)
+    close(out[0][:, 2], ref["x"])

@@ -244,15 +244,20 @@ def test_iteration_draws_depend_on_seed_and_iteration_only():
 
 
 def test_campaign_routing(tmp_path):
-    """Routable: a synthetic benchmark, the default driver (a MAP
-    ``fit_method`` and a ``device`` allowed), homoscedastic loss noise;
-    the routed experiment gives ``run_study``'s schema per seed."""
+    """Routable: a synthetic benchmark, the default driver (a
+    ``fit_method`` the campaign runs, MAP or a posterior fit, and a
+    ``device`` allowed), homoscedastic loss noise; the routed experiment
+    gives ``run_study``'s schema per seed."""
     noise = HomoscedasticGaussianNoise({"loss": 0.05})
     kw = {"n_data_per_task": [4] * 2}
     ok = lr._campaign_routable(ScaMLGPBO, {"device": "cpu"}, TQuadratic, kw,
                                noise)
     assert ok and lr._campaign_routable(ScaMLGPBO, {}, TBranin, kw, None)
-    for args in ((ScaMLGPBO, {"fit_method": "hmc"}, TQuadratic, kw, noise),
+    for m in ("hmc", "nuts", "vi"):
+        assert lr._campaign_routable(ScaMLGPBO, {"fit_method": m,
+                                                 "device": "cpu"},
+                                     TQuadratic, kw, noise)
+    for args in ((ScaMLGPBO, {"fit_method": "mcmc"}, TQuadratic, kw, noise),
                  (object, {}, TQuadratic, kw, noise),
                  (ScaMLGPBO, {"seed": 1}, TQuadratic, kw, noise),
                  (ScaMLGPBO, {}, TQuadratic, dict(kw, seed=1), noise),
@@ -299,3 +304,151 @@ def test_batch_probe_compares_two_recordings():
     found = bp.compare(full, part)
     assert found["compared"] == 2
     assert found["batch_dependent_op"]["op"] == "aten.mul"
+
+
+# ---------------------------------------------------------------------------
+# posterior-marginalized fits (fit_method "hmc", "nuts", "vi")
+# ---------------------------------------------------------------------------
+
+#: Quadratic 2 tasks x 6 points, 2 studies, 3 evaluations, small samplers
+POST_CFG = dataclasses.replace(
+    CFG, hmc_chains=2, hmc_warmup=6, hmc_samples=4, hmc_leapfrog=3,
+    hmc_max_depth=3, mixture_samples=4, vi_steps=10, vi_mc=4)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the posterior campaigns (the tests from here
+    on): their small batched ops run several times faster without the
+    thread pool's synchronization, and every run compared runs alike."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def post_inputs(one_thread):
+    return ta.campaign_inputs_from_benchmark(
+        TQuadratic, [6] * M, range(2), noise_std=0.05, dtype=F64,
+        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def post_full(post_inputs):
+    fn, tp, md, _ = post_inputs
+    return {m: tc.run_campaign(fn, tp, md, **dict(
+        KW, cfg=dataclasses.replace(POST_CFG, fit_method=m)))
+        for m in ("hmc", "nuts", "vi")}
+
+
+@pytest.mark.parametrize("fit_method", ["hmc", "nuts", "vi"])
+def test_posterior_campaign_is_finite(fit_method, post_inputs, post_full):
+    """Proposals in the unit cube, finite losses and regrets, and the last
+    iteration's mixture draws, (S, mixture_samples, ...), finite."""
+    res = post_full[fit_method]
+    assert res.X.shape == (2, 3, 1)
+    assert bool(((res.X >= 0) & (res.X <= 1)).all())
+    assert bool(torch.isfinite(res.y_clean).all())
+    assert bool(torch.isfinite(tc.simple_regret(res.y_clean,
+                                                post_inputs[3])).all())
+    assert res.samples.raw_weights.shape == (2, 4, M)
+    for leaf in tfit.tree_leaves(res.samples):
+        assert bool(torch.isfinite(leaf).all())
+
+
+@pytest.mark.parametrize("fit_method", ["hmc", "vi"])
+def test_posterior_campaign_resumes_bit_for_bit(fit_method, post_inputs,
+                                                post_full, tmp_path):
+    """Stopped after 1 iteration and resumed: the same proposals, losses
+    and mixture draws as the uninterrupted run (the carried last draw is
+    the checkpoint's parameters)."""
+    fn, tp, md, _ = post_inputs
+    kw = dict(KW, cfg=dataclasses.replace(POST_CFG, fit_method=fit_method))
+    path = tmp_path / "ck"
+    tc.run_campaign(fn, tp, md, checkpoint_path=path, stop_after=1, **kw)
+    res = tc.run_campaign(fn, tp, md, checkpoint_path=path, **kw)
+    assert len(res.iteration_seconds) == 2
+    full = post_full[fit_method]
+    assert_same(res, full)
+    for a, b in zip(tfit.tree_leaves(res.samples),
+                    tfit.tree_leaves(full.samples)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fit_method", ["hmc", "vi"])
+def test_posterior_campaign_in_chunks_matches(fit_method, post_inputs,
+                                              post_full):
+    """In chunks of 1 study: each study sees the draws it sees in the
+    uninterrupted run, so the results agree, but not bit for bit.  On the
+    CPU, ATen's vectorized element-wise kernels give a tensor's tail other
+    last bits than its vectorized body (``batch_probe``'s recorder on an
+    HMC iteration finds ``aten.sigmoid`` of a (4, 4) against a (2, 4)
+    tensor first, 5e-20 apart), so a study's values can move in the last
+    bit with the number of studies in the batch; the sampler's
+    evaluations carry that to about 1e-13."""
+    fn, tp, md, _ = post_inputs
+    kw = dict(KW, cfg=dataclasses.replace(POST_CFG, fit_method=fit_method))
+    res = tc.run_campaign(fn, tp, md, study_chunk=1, **kw)
+    full = post_full[fit_method]
+    for f in ("X", "y", "y_clean"):
+        np.testing.assert_allclose(getattr(res, f).numpy(),
+                                   getattr(full, f).numpy(), rtol=1e-9,
+                                   atol=1e-12)
+    for a, b in zip(tfit.tree_leaves(res.samples),
+                    tfit.tree_leaves(full.samples)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_posterior_iteration_draws_slice_by_study():
+    """A posterior fit's draws (chain starts and sampler draws) come with
+    the study axis first: a chunk's rows are the full draw's rows."""
+    tcfg = tgp.target_gp_config()
+    for m in ("hmc", "nuts", "vi"):
+        cfg = dataclasses.replace(POST_CFG, fit_method=m)
+        full = tc.iteration_draws(tc.iteration_generator(0, 1), cfg, tcfg, 3,
+                                  M, 1, F64, "cpu")
+        part = tc._rows(full, 1, 2)
+        assert part.restarts is None
+        trees = (full.sampler,) if m == "vi" else (full.chains,
+                                                    full.sampler)
+        ptrees = (part.sampler,) if m == "vi" else (part.chains,
+                                                    part.sampler)
+        leaves = [leaf for t in trees for leaf in tfit.tree_leaves(t)]
+        parts = [leaf for t in ptrees for leaf in tfit.tree_leaves(t)]
+        assert len(leaves) == len(parts) >= 2
+        for a, b in zip(leaves, parts):
+            assert a.shape[0] == 3 and torch.equal(a[1:2], b)
+    with pytest.raises(ValueError, match="Unknown fit_method"):
+        dataclasses.replace(POST_CFG, fit_method="mcmc")
+
+
+def test_campaign_mixture_predictive_matches_each_draw(post_full):
+    """The campaign's mixture acquisition state, the draws (S, K) against
+    the unit axis of ``_with_draw_axis``, gives each draw's predictive as
+    the acquisition state built for that study and draw alone."""
+    res = post_full["vi"]
+    stack, samples = res.stack, res.samples
+    scfg, tcfg = tgp.source_gp_config(), tgp.target_gp_config()
+    om, os_ = tm.output_normalizer(stack, res.y, res.mask)
+    parts = tc._with_draw_axis(stack, res.X, res.y, res.mask, om, os_)
+    state = tc._study_acq_state(parts[0], scfg, tcfg, samples, *parts[1:],
+                                1e-3)
+    x = torch.linspace(0.0, 1.0, 7, dtype=F64)[:, None].expand(2, 7, 1)
+    mu, var = tc._study_posterior_diag_fast(parts[0], scfg, tcfg, state,
+                                            parts[1], x.unsqueeze(1))
+    assert mu.shape == var.shape == (2, 4, 7)
+    for s in range(2):
+        st_s = tfit.tree_map(lambda leaf: leaf[s], stack)
+        for k in range(4):
+            p = tfit.tree_map(lambda leaf: leaf[s, k], samples)
+            one = tm.acq_state_from_parts(st_s, scfg, tcfg, p, res.X[s],
+                                          res.y[s], res.mask[s], om[s],
+                                          os_[s], 1e-3)
+            m1, v1 = tm.posterior_diag_from_state(st_s, scfg, tcfg, one,
+                                                  res.X[s], x[s])
+            np.testing.assert_allclose(mu[s, k].numpy(), m1.numpy(),
+                                       rtol=1e-10, atol=1e-12)
+            np.testing.assert_allclose(var[s, k].numpy(), v1.numpy(),
+                                       rtol=1e-10, atol=1e-14)

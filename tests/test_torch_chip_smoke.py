@@ -1,12 +1,13 @@
-"""The chip smoke's float32 rounding guard, its ``chol64`` entry and its
-``campaign_resume`` phase, on CPU tensors.
+"""The chip smoke's float32 rounding guard, its ``chol64`` entry, its
+``campaign_resume`` phase and its ``posterior`` phase, on CPU tensors.
 
 ``chip_smoke.rounding`` holds each kernel of a slice's route to at most
 twice its plain version's distance from float64 on the slice's own
 systems; ``chip_smoke.inverse_schemes`` names those kernels.  Here the
 plain versions stand in for the kernels (the CUDA kernels have no CPU
 mode), so the guard's comparison and its failure, the ``chol64`` entry and
-the resume phase's runs and checks are exercised without a card.
+the resume phase's runs and checks and the posterior phase's launch
+arithmetic are exercised without a card.
 """
 
 import functools
@@ -198,3 +199,98 @@ def test_chunked_run_held_to_its_tolerance(monkeypatch, tmp_path, shift_x,
     else:
         with pytest.raises(SystemExit):
             chip_smoke.phase_campaign_resume("cpu")
+
+
+def _small_posterior_phase(monkeypatch):
+    """The posterior phase's constants at a CPU size (Branin 2 tasks x 6
+    points, 2 studies x 2 evaluations, NUTS 1, small samplers, and a
+    driver class that adds small settings to the phase's arguments), and
+    a counting wrapper around the plain sweep in place of the kernel."""
+    plain = sweep.sweep_inverse_reference
+
+    def counted(A, variant="select"):
+        counted.launches[variant] += 1
+        return plain(A, variant)
+
+    counted.launches = sweep.sweep_inverse.launches
+    monkeypatch.setattr(sweep, "sweep_inverse", counted)
+    small = functools.partial(
+        chip_smoke.CampaignConfig, fit_steps=6, fit_restarts=1,
+        acq_raw_samples=16, acq_topk=2, acq_steps=3, hmc_warmup=4,
+        hmc_samples=3, hmc_leapfrog=3, hmc_max_depth=3, mixture_samples=4,
+        vi_steps=6, vi_mc=3)
+    driver = {"hmc_kwargs": {"num_warmup": 4, "num_samples": 3,
+                             "num_leapfrog": 3, "mixture_samples": 4},
+              "vi_kwargs": {"num_steps": 6, "num_mc": 3,
+                            "mixture_samples": 4},
+              "num_restarts_log_likelihood": 1, "num_fit_steps": 8,
+              "af_optimizer_kwargs": {"raw_samples": 16, "num_restarts": 2,
+                                      "num_steps": 3}}
+
+    class SmallBO(chip_smoke.TimedBO):
+        def __init__(self, search_space, objective, meta_data, **kwargs):
+            super().__init__(search_space, objective, meta_data,
+                             **{**driver, **kwargs})
+
+    for name, value in (("POSTERIOR_TASKS", 2), ("POSTERIOR_POINTS", 6),
+                        ("POSTERIOR_STUDIES", 2), ("POSTERIOR_EVALS", 2),
+                        ("POSTERIOR_DRIVER_EVALS", 2), ("META_RESTARTS", 1),
+                        ("META_STEPS", 6), ("TimedBO", SmallBO),
+                        ("CampaignConfig", small)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    return small
+
+
+def test_posterior_launch_arithmetic():
+    """One select launch a log-density evaluation of the whole batch: HMC
+    961 an iteration at the CampaignConfig defaults, ADVI 200, NUTS 161 to
+    5121."""
+    cfg = chip_smoke.CampaignConfig
+    assert chip_smoke.posterior_launches(cfg(fit_method="hmc")) == (961, 961)
+    assert chip_smoke.posterior_launches(cfg(fit_method="vi")) == (200, 200)
+    assert chip_smoke.posterior_launches(cfg(fit_method="nuts")) == (161,
+                                                                      5121)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the phase's small batched ops run several
+    times faster without the thread pool's synchronization."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_posterior_phase_on_the_cpu(monkeypatch, capsys, one_thread):
+    """The posterior phase at a small size, its plain version standing in
+    for the kernel through a counting wrapper: each campaign's launches
+    per iteration are the design's, the rounding guard compares the route
+    with itself, and both sequential drivers run."""
+    small = _small_posterior_phase(monkeypatch)
+    launches = chip_smoke.phase_posterior("cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "posterior"
+    runs = {c["fit_method"]: c for c in line["campaigns"]}
+    assert list(runs) == ["hmc", "nuts", "vi"]
+    T = 4 + 3
+    assert runs["hmc"]["select_launches_per_iteration"] == [1 + T * 3] * 2
+    assert runs["vi"]["select_launches_per_iteration"] == [6] * 2
+    assert [runs[m]["evaluations"] for m in runs] == [2, 1, 2]
+    assert len(runs["nuts"]["select_launches_per_iteration"]) == 1
+    for n in runs["nuts"]["select_launches_per_iteration"]:
+        assert 1 + 2 * T <= n <= 1 + T * 2 ** 3
+    assert launches["sweep_inverse"] == sum(
+        c["select_launches_meta_fit"] + sum(c["select_launches_per_iteration"])
+        for c in line["campaigns"])
+    for c in line["campaigns"]:
+        assert c["predicted_per_iteration"] == list(
+            chip_smoke.posterior_launches(small(fit_method=c["fit_method"])))
+        assert 0.0 < c["sampler_share"] < 1.0
+    r = line["rounding"]
+    assert r["draws"] == 2 * 4
+    assert r["kernel"] == r["plain"]
+    assert 0.0 < r["plain"]["value"][0] < 1e-2
+    assert [d["fit_method"] for d in line["drivers"]] == ["hmc", "vi"]
+    for d in line["drivers"]:
+        assert d["mixture_draws"] == 4 and len(d["refit_s"]) == 2

@@ -62,8 +62,9 @@ def test_port_and_chip_smoke_import_without_jax():
 def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     """The import guard above walks the package; the kernel N-scaling bench,
     the profiling hooks, the Gram kernel's module, the sequential driver,
-    the study unit, the checkpoints, the ablation driver and the Quadratic
-    benchmark are among the modules that it imports."""
+    the study unit, the checkpoints, the ablation driver, the Quadratic
+    benchmark and the HMC, NUTS and ADVI samplers are among the modules
+    that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -86,7 +87,9 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.ablation",
             "scamlgp_tpu_torch.batch_probe",
             "scamlgp_tpu_torch.benchmarking.functions.quadratic",
-            "scamlgp_tpu_torch.benchmarking.benchmarks.quadratic"} <= names
+            "scamlgp_tpu_torch.benchmarking.benchmarks.quadratic",
+            "scamlgp_tpu_torch.models.hmc",
+            "scamlgp_tpu_torch.models.vi"} <= names
 
 
 def test_chip_smoke_fails_without_cuda():
