@@ -107,6 +107,28 @@ Phases, each printing one JSON line with its own seconds:
    float64, the Cholesky route: no kernel) through ``run_study``, 1 study
    x POSTERIOR_DRIVER_EVALS evaluations each.  ``select`` is then timed
    at the samplers' shapes (``posterior_times``);
+4d. experiment: the experiment layer.  ``submit`` of the paper's
+   ``BRANIN_T8_P32_N1_SCAMLGP`` (8 meta-tasks x 32 points, d=2, noise 1.0,
+   not cut) cut to EXPERIMENT_STUDIES x EXPERIMENT_EVALS, a copy of the
+   ``Experiment`` from ``configurations/branin.py``, through
+   ``local_runner.main`` on the card into EXPERIMENT_DIR: the log must
+   show the campaign route, ``load_results_from_disk`` must read back
+   every study, their regret curves equal to the ``CampaignResult``'s to
+   float32 rounding (TOL_REGRET), and the ``hash`` CLI must print the JAX
+   package's hashes (BRANIN_HASHES).  Then two table campaigns of
+   EXPERIMENT_TABLE_STUDIES x EXPERIMENT_TABLE_EVALS through
+   ``tabular_adapters`` and ``run_campaign``, float32, the CampaignConfig
+   defaults, on synthetic tables made from TABLE_DATA_SEED at the
+   published shapes: ``GridTable``, two ordinal dimensions of 32 levels
+   (G = 1024) with 28 meta-tasks x 64 points (``lr_tabular``'s width),
+   every observation equal to the benchmark's own host lookup of
+   ``from_numerical(x)``; ``NNTable``, PD1's four continuous dimensions
+   with 22 meta-tasks x 128 points (``pd1``'s width) and target tables of
+   1024 to 4096 rows, every observation the host's float64 L1 argmin (or,
+   at a float32 near tie, a row as near).  One line with each run's setup,
+   meta-fit and per-iteration seconds and the tables' bytes on the card.
+   ``submit`` runs ``chol``, the default of both packages, so the phase
+   launches no hand kernel;
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -133,7 +155,10 @@ device it exits 2 at once.
 """
 
 import contextlib
+import dataclasses
+import io
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -149,9 +174,26 @@ from scamlgp_tpu_torch.benchmarking.benchmarks import (
     Hartmann6D,
     Quadratic,
 )
+from scamlgp_tpu_torch.benchmarking import local_runner, tabular_adapters
+from scamlgp_tpu_torch.benchmarking import utils as experiment_utils
+from scamlgp_tpu_torch.benchmarking.benchmarks.api import Benchmark, Task
+from scamlgp_tpu_torch.benchmarking.configurations import (
+    branin as branin_experiments,
+)
 from scamlgp_tpu_torch.benchmarking.local_runner import run_study
 from scamlgp_tpu_torch.benchmarking.noise import HomoscedasticGaussianNoise
+from scamlgp_tpu_torch.benchmarking.plotting import _regret_curves
 from scamlgp_tpu_torch.bo import ScaMLGPBO
+from scamlgp_tpu_torch.bo.core import (
+    Evaluation,
+    EvaluationSpecification,
+    Objective,
+)
+from scamlgp_tpu_torch.bo.space import (
+    ContinuousParameter,
+    OrdinalParameter,
+    ParameterSpace,
+)
 from scamlgp_tpu_torch.bo.optimize import sobol_unit
 from scamlgp_tpu_torch.benchmarking.torch_adapters import (
     campaign_inputs_from_benchmark,
@@ -240,6 +282,34 @@ POSTERIOR_STUDIES, POSTERIOR_EVALS, POSTERIOR_DRIVER_EVALS = 4, 2, 3
 POSTERIOR_NUTS_EVALS = 1
 POSTERIOR_METHODS, POSTERIOR_DRIVER_METHODS = ("hmc", "nuts", "vi"), (
     "hmc", "vi")
+#: the experiment phase: BRANIN_T8_P32_N1_SCAMLGP (8 meta-tasks x 32
+#: points, noise 1.0, not cut) cut to EXPERIMENT_STUDIES x
+#: EXPERIMENT_EVALS through ``local_runner.main``, its results under
+#: EXPERIMENT_DIR; then two table campaigns of EXPERIMENT_TABLE_STUDIES x
+#: EXPERIMENT_TABLE_EVALS: a grid of two ordinal dimensions of GRID_LEVELS
+#: levels (G = 1024) with GRID_TASKS x GRID_POINTS meta-data (lr_tabular's
+#: width), and PD1's four continuous dimensions with NN_TASKS x NN_POINTS
+#: meta-data (pd1's width) and target tables of up to NN_MAX_ROWS rows
+EXPERIMENT_KEY = "BRANIN_T8_P32_N1_SCAMLGP"
+EXPERIMENT_STUDIES, EXPERIMENT_EVALS = 4, 3
+EXPERIMENT_DIR = Path(__file__).resolve().parent / "build" / \
+    "smoke_experiments"
+#: the JAX package's hashes of configurations/branin.py's experiments
+#: (``python -m scamlgp_tpu.benchmarking.configurations.branin hash all``)
+BRANIN_HASHES = {
+    "BRANIN_T8_P32_N1_SCAMLGP":
+        "08334b78e90305aae7f101472a1a2d86cc769da413526a7e268584bc163da9c4",
+    "BRANIN_T32_P32_N1_SCAMLGP":
+        "6dd8f805b91f5cac81c9ef895ba173f9f4011fb8bcb90a7c258534258e586d34",
+}
+EXPERIMENT_TABLE_STUDIES, EXPERIMENT_TABLE_EVALS = 8, 3
+GRID_LEVELS, GRID_TASKS, GRID_POINTS = 32, 28, 64
+NN_TASKS, NN_POINTS, NN_MAX_ROWS = 22, 128, 4096
+#: the synthetic tables are drawn from this seed, the studies' targets and
+#: meta-data from each study's seed
+TABLE_DATA_SEED = 1234
+#: the persisted regret curves against the campaign's, float32 rounding
+TOL_REGRET = 1e-6
 #: chol64 against the MLL computed wholly in float64: the cast alone
 TOL_CHOL64 = 1e-6
 #: the chunked run against the uninterrupted one where it is not bit for
@@ -752,6 +822,332 @@ def phase_campaign_resume(device="cuda"):
     return launches
 
 
+class TablePool(Benchmark):
+    """What the smoke's synthetic tables share: a pool of ``n_pool`` tasks
+    from which the study seed draws the target task and, without
+    replacement, one meta-task per entry of ``n_data_per_task``, as
+    ``HPOBenchTabular`` and ``PD1`` do."""
+
+    def _draw_tasks(self, n_pool, n_data_per_task, seed):
+        self._n_data = list(n_data_per_task)
+        prng = np.random.default_rng(seed)
+        pool = list(range(n_pool))
+        target = int(prng.choice(pool))
+        pool.remove(target)
+        meta = prng.choice(pool, size=len(self._n_data), replace=False)
+        self._target = Task(uid=target, descriptors={}, settings={},
+                            context={})
+        self._meta = {int(t): Task(uid=int(t), descriptors={}, settings={},
+                                   context={}) for t in meta}
+
+    @property
+    def target_task(self):
+        return self._target
+
+    @property
+    def meta_tasks(self):
+        return self._meta
+
+    @property
+    def search_space(self):
+        return self._space
+
+    @property
+    def output_dimensions(self):
+        return 1
+
+
+class GridTable(TablePool):
+    """A synthetic grid-table benchmark at ``lr_tabular``'s shape: two
+    ordinal dimensions of ``GRID_LEVELS`` levels, one value a grid cell,
+    in a pool of ``GRID_TASKS + 4`` tasks whose tables (shifted, scaled
+    quadratic bowls plus noise) come from ``TABLE_DATA_SEED``; evaluation
+    is a table lookup."""
+
+    objectives = [Objective("loss", greater_is_better=False)]
+
+    def __init__(self, n_data_per_task=(), seed=None):
+        levels = np.linspace(-6.0, 0.0, GRID_LEVELS)
+        self._space = ParameterSpace()
+        for name in ("log_lr", "log_wd"):
+            self._space.add(OrdinalParameter(name, [float(v)
+                                                    for v in levels]))
+        rng = np.random.default_rng(TABLE_DATA_SEED)
+        n_pool = GRID_TASKS + 4
+        u = (np.arange(GRID_LEVELS) + 0.5) / GRID_LEVELS
+        c = rng.uniform(0.2, 0.8, size=(n_pool, 2, 1, 1))
+        bowl = ((u[:, None] - c[:, 0]) ** 2 + (u[None, :] - c[:, 1]) ** 2)
+        tables = (0.05 + rng.uniform(0.5, 2.0, size=(n_pool, 1, 1)) * bowl
+                  + 0.01 * rng.standard_normal(bowl.shape))
+        self._tables = tables.reshape(n_pool, -1)
+        self._draw_tasks(n_pool, n_data_per_task, seed)
+
+    @property
+    def optimum(self) -> float:
+        return float(self._tables[self._target.uid].min())
+
+    def _value(self, config, task) -> float:
+        i, j = (p.values.index(config[p.name]) for p in self._space._params)
+        return float(self._tables[task, i * GRID_LEVELS + j])
+
+    def __call__(self, eval_spec, task_uid=None):
+        task = self._target.uid if task_uid is None else task_uid
+        return eval_spec.create_evaluation(
+            {"loss": self._value(eval_spec.configuration, task)})
+
+    def get_meta_data(self, distribution="random", seed=None):
+        rng = np.random.default_rng(seed)
+        out = {}
+        for uid, n in zip(self._meta, self._n_data):
+            configs = [self._space.sample(rng) for _ in range(n)]
+            out[uid] = [Evaluation(configuration=c,
+                                   objectives={"loss": self._value(c, uid)})
+                        for c in configs]
+        return out
+
+
+#: PD1's search space (``benchmarks/pd1.py``)
+NN_BOUNDS = {"decay_steps_factor": (0.01, 0.99),
+             "initial_value": (float(np.log(1e-5)), float(np.log(10))),
+             "power": (0.1, 2.0),
+             "momentum": (float(np.log(1e-3)), 0.0)}
+
+
+class NNTable(TablePool):
+    """A synthetic PD1-like benchmark: PD1's four plain continuous
+    dimensions, a pool of ``NN_TASKS + 4`` tasks of 1024 to
+    ``NN_MAX_ROWS`` rows each (so the studies' padded target tables differ
+    in length), drawn from ``TABLE_DATA_SEED``; evaluation is PD1's L1
+    nearest-neighbour lookup, in float64 on the host, and ``task_rows``
+    hands a task's rows on as ``PD1.task_rows`` does."""
+
+    objectives = [Objective("best_valid/error_rate", greater_is_better=False)]
+
+    def __init__(self, n_data_per_task=(), seed=None):
+        self._space = ParameterSpace()
+        for name, bounds in NN_BOUNDS.items():
+            self._space.add(ContinuousParameter(name, bounds))
+        lo = np.array([b[0] for b in NN_BOUNDS.values()])
+        hi = np.array([b[1] for b in NN_BOUNDS.values()])
+        rng = np.random.default_rng(TABLE_DATA_SEED)
+        n_pool = NN_TASKS + 4
+        self._rows = []
+        for _ in range(n_pool):
+            r = int(rng.integers(1024, NN_MAX_ROWS + 1))
+            u = rng.uniform(size=(r, 4))
+            c = rng.uniform(0.2, 0.8, size=4)
+            v = 0.05 + 0.9 * np.tanh(((u - c) ** 2).sum(-1)) \
+                + 0.01 * rng.uniform(size=r)
+            self._rows.append((lo + (hi - lo) * u, v))
+        self._draw_tasks(n_pool, n_data_per_task, seed)
+
+    @property
+    def optimum(self) -> float:
+        return float(self._rows[self._target.uid][1].min())
+
+    def task_rows(self, task_uid=None):
+        return self._rows[self._target.uid if task_uid is None
+                          else task_uid]
+
+    def distances(self, config, task_uid=None) -> np.ndarray:
+        """Float64 L1 distances of ``config`` to the task's rows."""
+        coords, _ = self.task_rows(task_uid)
+        x = np.array([config[n] for n in NN_BOUNDS])
+        return np.abs(coords - x).sum(-1)
+
+    def __call__(self, eval_spec, task_uid=None):
+        _, values = self.task_rows(task_uid)
+        i = int(np.argmin(self.distances(eval_spec.configuration, task_uid)))
+        return eval_spec.create_evaluation(
+            {self.objectives[0].name: float(values[i])})
+
+    def get_meta_data(self, distribution="random", seed=None):
+        rng = np.random.default_rng(seed)
+        out = {}
+        for uid, n in zip(self._meta, self._n_data):
+            coords, values = self._rows[uid]
+            rows = rng.choice(len(values), size=n, replace=False)
+            out[uid] = [Evaluation(
+                configuration=dict(zip(NN_BOUNDS, coords[r].tolist())),
+                objectives={self.objectives[0].name: float(values[r])})
+                for r in rows]
+        return out
+
+
+def table_campaign(name, build, factory, device):
+    """One table campaign of EXPERIMENT_TABLE_STUDIES x
+    EXPERIMENT_TABLE_EVALS through ``build`` (a ``tabular_adapters``
+    input function) and ``run_campaign`` on ``device``; returns its result, its
+    proposals as a numpy array and the line's entries."""
+    seeds = list(range(EXPERIMENT_TABLE_STUDIES))
+    t0 = time.perf_counter()
+    fn, tp, md, optima = build(factory, seeds, device=device)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    cfg = CampaignConfig(n_evaluations=EXPERIMENT_TABLE_EVALS,
+                         noise_std=0.0)
+    t0 = time.perf_counter()
+    res = run_campaign(fn, tp, md, seed=0, cfg=cfg, device=device)
+    sync(device)
+    X = res.X.detach().cpu().numpy()
+    check(res.X.shape == (len(seeds), EXPERIMENT_TABLE_EVALS, md.X.shape[-1])
+          and bool(torch.isfinite(res.X).all())
+          and bool(((res.X >= 0) & (res.X <= 1)).all())
+          and bool(torch.equal(res.y, res.y_clean)),
+          f"experiment {name}: proposals out of the cube or noisy losses")
+    regret = simple_regret(res.y_clean, torch.as_tensor(optima))
+    check(bool((regret >= 0).all()),
+          f"experiment {name}: an observation beat its table's optimum")
+    line = {"table": name, "studies": len(seeds),
+            "evaluations": EXPERIMENT_TABLE_EVALS,
+            "meta_tasks": md.X.shape[1], "meta_points": md.X.shape[2],
+            "d": md.X.shape[-1], "seconds": time.perf_counter() - t0,
+            "setup_s": setup_s, "meta_fit_s": res.meta_fit_seconds,
+            "iteration_s": res.iteration_seconds,
+            "task_params_shapes": {k: list(v.shape) for k, v in tp.items()},
+            "table_bytes_on_device": sum(v.numel() * v.element_size()
+                                         for v in tp.values()),
+            "nonfinite_source_tasks": res.nonfinite_source_tasks,
+            "median_regret": [float(v) for v in
+                              regret.median(dim=0).values]}
+    return res, X, line
+
+
+def phase_experiment(device="cuda"):
+    """The experiment layer on the card: ``submit`` of a cut Branin
+    experiment through ``local_runner.main`` (routed, persisted, read
+    back, its hashes printed), then the grid-table and NN-table
+    campaigns; returns the phase's launches of every kernel."""
+    t0 = time.perf_counter()
+    reset_launches()
+    module = "scamlgp_tpu_torch.benchmarking.configurations.branin"
+    experiments = branin_experiments.EXPERIMENTS
+    config = dataclasses.replace(experiments[EXPERIMENT_KEY],
+                                 n_studies=EXPERIMENT_STUDIES,
+                                 n_evaluations=EXPERIMENT_EVALS)
+    shutil.rmtree(EXPERIMENT_DIR, ignore_errors=True)
+    messages = []
+
+    class Record(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    campaigns, entered = [], []
+    real = local_runner.run_campaign
+
+    def recording(*args, **kw):
+        entered.append(time.perf_counter())
+        campaigns.append(real(*args, **kw))
+        return campaigns[-1]
+
+    handler = Record(level=logging.WARNING)
+    runner_log = logging.getLogger("scamlgp_tpu_torch.runner")
+    runner_log.addHandler(handler)
+    local_runner.run_campaign = recording
+    try:
+        ts = time.perf_counter()
+        out_dir = local_runner.main(config, module, EXPERIMENT_KEY, 1,
+                                    output_root=EXPERIMENT_DIR,
+                                    device=device)
+        sync(device)
+        submit_s = time.perf_counter() - ts
+    finally:
+        local_runner.run_campaign = real
+        runner_log.removeHandler(handler)
+    check(any("lock-step campaign" in m for m in messages)
+          and len(campaigns) == 1,
+          f"experiment submit: not routed through the campaign: {messages}")
+    res = campaigns[0]
+    loaded = experiment_utils.load_results_from_disk(
+        {EXPERIMENT_KEY: config}, module, EXPERIMENT_DIR)
+    studies = sorted(loaded.get(EXPERIMENT_KEY, {}).get("studies", []),
+                     key=lambda st: st["seed"])
+    check([st["seed"] for st in studies] == list(range(EXPERIMENT_STUDIES)),
+          f"experiment submit: read back {len(studies)} studies from "
+          f"{out_dir}")
+    persisted = _regret_curves(studies)
+    optima = torch.tensor([st["optimum"] for st in studies],
+                          dtype=res.y_clean.dtype, device=res.y_clean.device)
+    campaign = simple_regret(res.y_clean, optima).double().cpu().numpy()
+    regret_diff = float(np.abs(persisted - campaign).max())
+    scale = 1.0 + float(np.abs(res.y_clean.double().cpu().numpy()).max())
+    check(persisted.shape == (EXPERIMENT_STUDIES, EXPERIMENT_EVALS)
+          and regret_diff <= TOL_REGRET * scale,
+          f"experiment submit: persisted regret {persisted.shape} lies "
+          f"{regret_diff} from the campaign's")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        experiment_utils.run_experiment_cli(module, experiments,
+                                            lambda results: None,
+                                            ["hash", "all"])
+    hashes = {key: h for h, key in
+              (line.split() for line in printed.getvalue().splitlines()[1:])}
+    check(hashes == BRANIN_HASHES,
+          f"experiment hash: printed {hashes}, not {BRANIN_HASHES}")
+    submit = {"experiment": EXPERIMENT_KEY, "studies": EXPERIMENT_STUDIES,
+              "evaluations": EXPERIMENT_EVALS, "seconds": submit_s,
+              "setup_s": entered[0] - ts,
+              "meta_fit_s": res.meta_fit_seconds,
+              "iteration_s": res.iteration_seconds,
+              "route": [m for m in messages if "submit" in m],
+              "results_dir": str(out_dir.relative_to(EXPERIMENT_DIR)),
+              "max_abs_regret_diff": regret_diff,
+              "median_regret": [float(v) for v in
+                                np.median(persisted, axis=0)],
+              "hashes_equal_jax": True}
+
+    # the grid table: every proposal's device value is the benchmark's own
+    # host lookup of from_numerical(x), exactly (float32 of the table)
+    def grid(seed):
+        return GridTable([GRID_POINTS] * GRID_TASKS, seed=seed)
+
+    gres, X, grid_line = table_campaign(
+        "grid", tabular_adapters.campaign_inputs_from_grid_tabular, grid,
+        device)
+    y = gres.y_clean.cpu().numpy()
+    for s in range(X.shape[0]):
+        b = grid(s)
+        for e in range(X.shape[1]):
+            cfg = b.search_space.from_numerical(X[s, e].astype(np.float64))
+            host = b(EvaluationSpecification(configuration=cfg))
+            check(np.float32(host.objectives["loss"]) == y[s, e],
+                  f"experiment grid: study {s} evaluation {e}: device "
+                  f"{y[s, e]} against the host lookup "
+                  f"{host.objectives['loss']}")
+
+    # the NN table: the device's row is the host's float64 L1 argmin, or
+    # (float32 against float64 distances) a row as near to float32
+    # rounding
+    def nn(seed):
+        return NNTable([NN_POINTS] * NN_TASKS, seed=seed)
+
+    nres, X, nn_line = table_campaign(
+        "nn", tabular_adapters.campaign_inputs_from_pd1, nn, device)
+    y = nres.y_clean.cpu().numpy()
+    exact = 0
+    for s in range(X.shape[0]):
+        b = nn(s)
+        _, values = b.task_rows()
+        for e in range(X.shape[1]):
+            cfg = b.search_space.from_numerical(X[s, e].astype(np.float64))
+            dist = b.distances(cfg)
+            host = b(EvaluationSpecification(configuration=cfg))
+            name = b.objectives[0].name
+            if np.float32(host.objectives[name]) == y[s, e]:
+                exact += 1
+                continue
+            same = dist[values.astype(np.float32) == y[s, e]]
+            check(same.size and same.min() <= dist.min() * (1 + 1e-5)
+                  + 1e-6, f"experiment nn: study {s} evaluation {e}: "
+                  f"device {y[s, e]}, host L1 argmin "
+                  f"{host.objectives[name]}")
+    nn_line["host_argmin_exact"] = [exact, X.shape[0] * X.shape[1]]
+    launches = launches_now()
+    emit("experiment", time.perf_counter() - t0, submit=submit,
+         tables=[grid_line, nn_line], launches=launches)
+    return launches
+
+
 def posterior_launches(cfg: CampaignConfig):
     """The ``select`` launches that one iteration of a posterior-fit
     campaign makes, as (least, most): one a log-density evaluation of the
@@ -1165,6 +1561,7 @@ def main():
     by_slice = {key: phase_slice(key) for key in SLICES}
     by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["posterior"] = phase_posterior()
+    by_slice["experiment"] = phase_experiment()
     sampler_times = posterior_times()
     by_slice["bench_sweep_n"] = phase_bench()
     by_slice["driver"] = phase_driver()

@@ -49,6 +49,7 @@ from scamlgp_tpu_torch.ops import blocked_chol as tbc
 from scamlgp_tpu_torch.ops import inverse_mll as tim
 from scamlgp_tpu_torch.parallel import campaign as tc
 from tests.test_torch_campaign import CFG, _jax_iteration
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 

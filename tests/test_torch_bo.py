@@ -11,6 +11,7 @@ from scamlgp_tpu.bo import acquisition as ja
 from scamlgp_tpu.bo import optimize as jo
 from scamlgp_tpu_torch.bo import acquisition as ta
 from scamlgp_tpu_torch.bo import optimize as to
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 ACQS = ["UpperConfidenceBound", "ExpectedImprovement",

@@ -40,6 +40,7 @@ from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.parallel import campaign as tc
 from tests import torch_posterior_case as case
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 S, M, NPTS, E = 2, 2, 8, 4

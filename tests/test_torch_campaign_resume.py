@@ -42,6 +42,7 @@ from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.parallel import campaign as tc
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 S, M, NPTS = 4, 2, 8
@@ -314,17 +315,6 @@ def test_batch_probe_compares_two_recordings():
 POST_CFG = dataclasses.replace(
     CFG, hmc_chains=2, hmc_warmup=6, hmc_samples=4, hmc_leapfrog=3,
     hmc_max_depth=3, mixture_samples=4, vi_steps=10, vi_mc=4)
-
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """One intra-op thread for the posterior campaigns (the tests from here
-    on): their small batched ops run several times faster without the
-    thread pool's synchronization, and every run compared runs alike."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

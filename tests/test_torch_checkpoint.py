@@ -18,6 +18,7 @@ from scamlgp_tpu_torch.bo import ScaMLGPBO
 from scamlgp_tpu_torch.bo.core import Objective
 from scamlgp_tpu_torch.bo.space import ContinuousParameter, ParameterSpace
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
+from tests.torch_threads import one_thread  # noqa: F401
 
 FAST = dict(num_restarts_log_likelihood=1, num_fit_steps=20,
             af_optimizer_kwargs={"raw_samples": 64, "num_restarts": 2,

@@ -18,8 +18,12 @@ import pytest
 import torch
 
 import chip_smoke
+from scamlgp_tpu_torch.benchmarking import local_runner
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.ops import blocked_chol, linalg, sweep
+from scamlgp_tpu_torch.parallel import campaign
+
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _systems(n, b=6, seed=0):
@@ -252,16 +256,6 @@ def test_posterior_launch_arithmetic():
                                                                       5121)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the phase's small batched ops run several
-    times faster without the thread pool's synchronization."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_posterior_phase_on_the_cpu(monkeypatch, capsys, one_thread):
     """The posterior phase at a small size, its plain version standing in
     for the kernel through a counting wrapper: each campaign's launches
@@ -294,3 +288,63 @@ def test_posterior_phase_on_the_cpu(monkeypatch, capsys, one_thread):
     assert [d["fit_method"] for d in line["drivers"]] == ["hmc", "vi"]
     for d in line["drivers"]:
         assert d["mixture_draws"] == 4 and len(d["refit_s"]) == 2
+
+
+def test_experiment_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The experiment phase at a CPU size (the Branin submit cut to 2
+    studies x 2 evaluations, small fits; tables of 2 studies x 2
+    evaluations with 3 meta-tasks x 8 points): routed through the
+    campaign, read back equal to it, the JAX package's hashes printed;
+    every grid observation the host lookup's, every NN one the host's L1
+    argmin; no kernel launched (``chol``)."""
+    small_cfg = functools.partial(chip_smoke.CampaignConfig, fit_steps=6,
+                                  fit_restarts=1, acq_raw_samples=16,
+                                  acq_topk=2, acq_steps=3)
+    small_run = functools.partial(campaign.run_campaign, meta_fit_restarts=1,
+                                  meta_fit_steps=6)
+    monkeypatch.setattr(local_runner, "CampaignConfig", small_cfg)
+    monkeypatch.setattr(local_runner, "run_campaign", small_run)
+    for name, value in (("EXPERIMENT_STUDIES", 2), ("EXPERIMENT_EVALS", 2),
+                        ("EXPERIMENT_DIR", tmp_path / "ex"),
+                        ("EXPERIMENT_TABLE_STUDIES", 2),
+                        ("EXPERIMENT_TABLE_EVALS", 2), ("GRID_TASKS", 3),
+                        ("GRID_POINTS", 8), ("NN_TASKS", 3),
+                        ("NN_POINTS", 8), ("CampaignConfig", small_cfg),
+                        ("run_campaign", small_run)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    launches = chip_smoke.phase_experiment("cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "experiment"
+    sub = line["submit"]
+    assert sub["hashes_equal_jax"] and sub["max_abs_regret_diff"] <= 1e-6
+    assert "lock-step campaign" in sub["route"][0]
+    assert len(sub["iteration_s"]) == 2
+    assert (tmp_path / "ex" / sub["results_dir"] / "info.json").exists()
+    grid, nn = line["tables"]
+    assert grid["task_params_shapes"] == {"table": [2, 1024]}
+    assert nn["task_params_shapes"]["coords"][::2] == [2, 4]
+    assert 1024 <= nn["task_params_shapes"]["coords"][1] <= 4096
+    assert grid["table_bytes_on_device"] == 2 * 1024 * 4
+    assert nn["host_argmin_exact"][1] == 4
+    assert [t["meta_tasks"] for t in (grid, nn)] == [3, 3]
+    assert all(v == 0 for v in launches.values())
+
+
+def test_experiment_tables_are_seeded():
+    """The smoke's synthetic tables: the study seed draws the target and
+    distinct meta-tasks; the same seed, the same draw; the grid has 1024
+    cells and its host lookup is the table; the NN rows stay in PD1's
+    bounds."""
+    a, b = (chip_smoke.GridTable([4] * 3, seed=s) for s in (5, 5))
+    assert a.target_task == b.target_task and list(a.meta_tasks) == list(
+        b.meta_tasks)
+    assert a.target_task.uid not in a.meta_tasks and len(a.meta_tasks) == 3
+    assert a._tables.shape[1] == 1024
+    assert a.optimum == a._tables[a.target_task.uid].min()
+    nn = chip_smoke.NNTable([4] * 2, seed=1)
+    coords, values = nn.task_rows()
+    lo, hi = np.array(list(chip_smoke.NN_BOUNDS.values())).T
+    assert ((coords >= lo) & (coords <= hi)).all()
+    assert nn.optimum == values.min()
+    md = nn.get_meta_data(seed=3)
+    assert [len(v) for v in md.values()] == [4, 4]

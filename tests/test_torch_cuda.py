@@ -25,6 +25,7 @@ from scamlgp_tpu_torch.bo.core import Objective
 from scamlgp_tpu_torch.ops import blocked_chol, gram, inverse_mll, sweep
 from scamlgp_tpu_torch.ops import kernels as K
 from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
+from tests.torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

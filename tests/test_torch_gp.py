@@ -13,6 +13,7 @@ import torch
 from scamlgp_tpu.models import gp as jgp
 from scamlgp_tpu_torch.convert import gp_params, to_numpy_dict
 from scamlgp_tpu_torch.models import gp as tgp
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 

@@ -27,6 +27,7 @@ import torch
 from scamlgp_tpu.ops.pallas_gram import rbf_gram_pallas
 from scamlgp_tpu_torch.ops import gram
 from scamlgp_tpu_torch.ops import kernels as K
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def inputs(n, m, d, seed=0):

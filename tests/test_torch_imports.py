@@ -15,6 +15,7 @@ import textwrap
 
 import pytest
 import torch
+from tests.torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "optax", "scamlgp_tpu", "pandas", "matplotlib",
@@ -63,8 +64,9 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     """The import guard above walks the package; the kernel N-scaling bench,
     the profiling hooks, the Gram kernel's module, the sequential driver,
     the study unit, the checkpoints, the ablation driver, the Quadratic
-    benchmark and the HMC, NUTS and ADVI samplers are among the modules
-    that it imports."""
+    benchmark, the HMC, NUTS and ADVI samplers, and the experiment layer
+    (its configuration modules, CLI, plotting, tabular benchmarks and
+    device adapters) are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -89,7 +91,20 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.benchmarking.functions.quadratic",
             "scamlgp_tpu_torch.benchmarking.benchmarks.quadratic",
             "scamlgp_tpu_torch.models.hmc",
-            "scamlgp_tpu_torch.models.vi"} <= names
+            "scamlgp_tpu_torch.models.vi",
+            "scamlgp_tpu_torch.benchmarking.experiment_config_utils",
+            "scamlgp_tpu_torch.benchmarking.utils",
+            "scamlgp_tpu_torch.benchmarking.plotting",
+            "scamlgp_tpu_torch.benchmarking.tabular_adapters",
+            "scamlgp_tpu_torch.benchmarking.benchmarks.hpo_bench_tabular",
+            "scamlgp_tpu_torch.benchmarking.benchmarks."
+            "fcnet_fixed_fidelity_tabular",
+            "scamlgp_tpu_torch.benchmarking.benchmarks.pd1",
+            "scamlgp_tpu_torch.benchmarking.configurations._shared",
+            "scamlgp_tpu_torch.benchmarking.configurations.styles"} <= names
+    configurations = {n.rsplit(".", 1)[1] for n in names if n.startswith(
+        "scamlgp_tpu_torch.benchmarking.configurations.")}
+    assert len(configurations - {"_shared", "styles"}) == 17
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -20,6 +20,7 @@ from scamlgp_tpu_torch.ops import linalg as tl
 from scamlgp_tpu_torch.utils import constraints as tc
 from scamlgp_tpu_torch.utils import priors as tp
 from scamlgp_tpu_torch.utils import standardize as ts
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 RTOL = 1e-10

@@ -38,6 +38,7 @@ from scamlgp_tpu_torch.bo.core import (
 from scamlgp_tpu_torch.bo.space import ContinuousParameter, ParameterSpace
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
+from tests.torch_threads import one_thread  # noqa: F401
 
 FAST_KWARGS = dict(
     num_restarts_log_likelihood=2,

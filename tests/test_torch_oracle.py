@@ -20,6 +20,7 @@ import torch
 
 from scamlgp_tpu.models import gp
 from scamlgp_tpu.models import scamlgp as m
+from tests.torch_threads import one_thread  # noqa: F401
 
 torch.set_default_dtype(torch.float64)
 

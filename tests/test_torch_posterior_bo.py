@@ -32,16 +32,7 @@ from scamlgp_tpu_torch.bo.core import Objective
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import hmc as thmc
 from scamlgp_tpu_torch.models import scamlgp as tm
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these small batched ops run several times
-    faster without the thread pool's synchronization."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 SMALL = dict(

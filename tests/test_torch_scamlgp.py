@@ -15,6 +15,7 @@ from scamlgp_tpu.models import scamlgp as jm
 from scamlgp_tpu_torch import convert
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 STEPS, RESTARTS = 15, 2

@@ -36,6 +36,7 @@ from scamlgp_tpu_torch.models import fit as tfit
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
+from tests.torch_threads import one_thread  # noqa: F401
 
 F32 = torch.float32
 M, NPTS, STUDY, TASK, RESTARTS, STEPS = 8, 32, 28, 2, 3, 12

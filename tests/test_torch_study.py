@@ -26,6 +26,7 @@ from scamlgp_tpu_torch.benchmarking.noise import (
 )
 from scamlgp_tpu_torch.benchmarking.noise import NoisyBenchmark
 from scamlgp_tpu_torch.bo import optimizer as topt
+from tests.torch_threads import one_thread  # noqa: F401
 
 FAST_KWARGS = dict(
     num_restarts_log_likelihood=2,

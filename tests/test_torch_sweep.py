@@ -23,6 +23,7 @@ import scamlgp_tpu.ops.pallas_sweep as ps
 from scamlgp_tpu.ops import inverse_mll as jim
 from scamlgp_tpu_torch.ops import inverse_mll as tim
 from scamlgp_tpu_torch.ops import sweep as tsw
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 

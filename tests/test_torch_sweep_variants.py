@@ -64,6 +64,7 @@ from scamlgp_tpu_torch.ops import sweep as tsw
 from scamlgp_tpu_torch.parallel import campaign as tc
 from scamlgp_tpu_torch.utils import profiling
 from tests.test_torch_campaign import CFG, _jax_iteration
+from tests.torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
