@@ -129,6 +129,27 @@ Phases, each printing one JSON line with its own seconds:
    meta-fit and per-iteration seconds and the tables' bytes on the card.
    ``submit`` runs ``chol``, the default of both packages, so the phase
    launches no hand kernel;
+4e. sharded: the sharding layer (``parallel/mesh.py``,
+   ``parallel/scamlgp_sharded.py``, ``parallel/distributed.py``,
+   ``distributed_worker``) on slots of the card (``mesh.local_slots``: on a
+   machine of several cards, one card a slot), float32, ``sweep``:
+   (a) the many-task regime (SHARD_A: Quadratic, 128 meta-tasks x 32
+   points, d=1, noise 0.05, one study) on a (1, SHARD_TASK_SLOTS) mesh:
+   ``meta_fit_sharded`` against ``meta_fit_task_stack`` on the same
+   restarts (SHARD_META_STEPS steps), held in each task's MAP objective,
+   evaluated in float64 (SHARD_META_TOL),
+   ``build_sharded_target``'s normalizer against the unsharded model's
+   (SHARD_NORM_RTOL), and ``fit_target_sharded`` (SHARD_TARGET_STEPS Adam
+   steps), which must lower the unsharded objective with finite weights;
+   (b) the width of ``BRANIN_T8_P32_N1_SCAMLGP`` (SHARD_B: 8 meta-tasks x
+   32 points, d=2, noise 1.0, 8 studies x 3 evaluations, the
+   CampaignConfig defaults) three ways: unsharded, on a (2, 1) mesh in
+   this process, and as two gloo ranks of ``distributed_worker`` sharing
+   the card (subprocesses on a free port, SHARD_RANK_TIMEOUT s), whose
+   rows must cover every study once.  The mesh and the ranks are held to
+   the unsharded run, and to each other, as the chunks are (CHUNK_TOL).  One line with each
+   leg's seconds, peak device memory and ``select`` launches, the ranks'
+   own lines inside it; the phase's launches include the ranks';
 5. bench_sweep_n: the kernel N-scaling bench (``scamlgp_tpu_torch.
    bench_sweep_n``) at (B, N) = (4096, 128) with every variant, with the
    launch counts set to 0 just before: the ``pair`` and ``blocked`` sweep
@@ -159,16 +180,24 @@ import dataclasses
 import io
 import json
 import logging
+import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from scamlgp_tpu_torch import bench_sweep_n, convert
+from scamlgp_tpu_torch import (
+    bench_sweep_n,
+    convert,
+    distributed_worker,
+    meta_fit_split,
+)
 from scamlgp_tpu_torch.benchmarking.benchmarks import (
     Branin,
     Hartmann6D,
@@ -210,12 +239,14 @@ from scamlgp_tpu_torch.ops import (
     linalg,
     sweep,
 )
+from scamlgp_tpu_torch.parallel import scamlgp_sharded
 from scamlgp_tpu_torch.parallel.campaign import (
     CampaignConfig,
     run_campaign,
     simple_regret,
     target_objective,
 )
+from scamlgp_tpu_torch.parallel.mesh import local_slots, make_mesh
 from scamlgp_tpu_torch.profile_kernels import (
     BASELINES,
     bound,
@@ -324,6 +355,36 @@ TOL_CHOL64 = 1e-6
 #: first proposals (no target data yet, so neither operation reaches the
 #: first fit's objective), in the unit cube
 CHUNK_TOL = {"noise": 1e-5, "first_x": 5e-3}
+
+#: the sharded phase, its meta-fits SHARD_META_STEPS L-BFGS steps: (a) the
+#: many-task regime (BASELINE.json config 4's width, one study) with its
+#: task axis over SHARD_TASK_SLOTS slots of the device, its target fit
+#: SHARD_TARGET_STEPS Adam steps on SHARD_A's ``target_points`` noisy
+#: target observations; (b) the width of BRANIN_T8_P32_N1_SCAMLGP,
+#: SHARD_B's studies x evaluations, unsharded, on a (2, 1) mesh and as two
+#: gloo ranks (on one card: sharing it), the ranks given SHARD_RANK_TIMEOUT
+#: s together; their files go to SHARD_DIR
+SHARD_A = dict(tasks=128, points=32, sigma=0.05, target_points=8)
+SHARD_B = dict(studies=8, evals=3, tasks=8, points=32, sigma=1.0)
+SHARD_TASK_SLOTS, SHARD_TARGET_STEPS, SHARD_RANK_TIMEOUT = 4, 100, 300
+SHARD_META_STEPS = 25
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "smoke_sharded"
+#: the task-sharded meta-fit against the one-batch fit on the same
+#: restarts: each task's MAP objective, evaluated in float64, relative to
+#: max(1, |objective|), its median and 90th percentile; and every task at
+#: or below its warm start.  ``python -m scamlgp_tpu_torch.meta_fit_split``
+#: on the card found no coupling between a batch's tasks: in float64 a
+#: split fit is the one-batch fit to 1.5e-6, but in float32 the batch size
+#: moves every task's last bits and a few L-BFGS runs settle in other
+#: local optima, as often lower as higher (over five restart seeds, 302
+#: tasks lower, 280 higher; the split's summed objective lower in two
+#: seeds).  There the median was at most 2.75e-5 and the 90th percentile
+#: at most 1.64e-3, at 25 steps as at 50; the bounds hold them with a
+#: margin.  The float32 objective itself lies a median 4.4e-4 from the
+#: float64 one at these fits, hence float64
+SHARD_META_TOL = {"median": 2e-4, "p90": 1e-2}
+#: the slot-summed normalizer against the unsharded model's
+SHARD_NORM_RTOL = 1e-5
 
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -735,6 +796,31 @@ def chol64_entry(key, scfg, X, y, mask, kern, truth):
     return out
 
 
+def compare_runs(a, b) -> dict:
+    """Run ``b`` against run ``a`` (each with X, y, y_clean): bit for bit
+    per field, the largest proposal difference overall and per iteration,
+    and the largest difference of the noise draws (y - y_clean)."""
+    out = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
+           for f in ("X", "y", "y_clean")}
+    out["max_abs_diff_X"] = (a.X - b.X).abs().max().item()
+    out["max_abs_diff_X_per_iteration"] = (
+        (a.X - b.X).abs().amax(dim=(0, 2)).tolist())
+    out["max_abs_diff_noise"] = ((a.y - a.y_clean)
+                                 - (b.y - b.y_clean)).abs().max().item()
+    return out
+
+
+def within_chunk_tol(eq: dict, X: torch.Tensor) -> bool:
+    """Bit for bit, or, where a batch-size-dependent library operation
+    moved a last bit (CHUNK_TOL), the same noise draws and first
+    proposals, and proposals in the unit cube throughout."""
+    return all(eq[f] for f in ("X", "y", "y_clean")) or (
+        eq["max_abs_diff_noise"] <= CHUNK_TOL["noise"]
+        and eq["max_abs_diff_X_per_iteration"][0] <= CHUNK_TOL["first_x"]
+        and bool(torch.isfinite(X).all())
+        and bool(((X >= 0) & (X <= 1)).all()))
+
+
 def phase_campaign_resume(device="cuda"):
     """The many-task campaign uninterrupted, stopped and resumed, and in
     study chunks; returns the phase's launches of every kernel."""
@@ -783,32 +869,14 @@ def phase_campaign_resume(device="cuda"):
           and bool(((a.X >= 0) & (a.X <= 1)).all())
           and bool(torch.isfinite(a.y_clean).all()),
           "campaign_resume: proposals or losses out of range")
-    equal = {}
-    for name in ("resumed", "chunked"):
-        b = out[name]
-        equal[name] = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
-                       for f in ("X", "y", "y_clean")}
-        equal[name]["max_abs_diff_X"] = (a.X - b.X).abs().max().item()
-        equal[name]["max_abs_diff_X_per_iteration"] = (
-            (a.X - b.X).abs().amax(dim=(0, 2)).tolist())
-        equal[name]["max_abs_diff_noise"] = ((a.y - a.y_clean)
-                                             - (b.y - b.y_clean)).abs().max(
-                                             ).item()
-    same = {k: all(equal[k][f] for f in ("X", "y", "y_clean"))
-            for k in equal}
-    check(same["resumed"], "campaign_resume: the resumed run differs from "
-          f"the uninterrupted one: {equal['resumed']}")
-    # the chunked run: bit for bit, or, where a batch-size-dependent
-    # library operation moved a last bit (CHUNK_TOL), each study's own
-    # noise draws and first proposals, and valid proposals throughout
-    ec, c = equal["chunked"], out["chunked"]
-    check(same["chunked"] or (
-        ec["max_abs_diff_noise"] <= CHUNK_TOL["noise"]
-        and ec["max_abs_diff_X_per_iteration"][0] <= CHUNK_TOL["first_x"]
-        and bool(torch.isfinite(c.X).all())
-        and bool(((c.X >= 0) & (c.X <= 1)).all())),
+    equal = {name: compare_runs(a, out[name])
+             for name in ("resumed", "chunked")}
+    check(all(equal["resumed"][f] for f in ("X", "y", "y_clean")),
+          "campaign_resume: the resumed run differs from the uninterrupted "
+          f"one: {equal['resumed']}")
+    check(within_chunk_tol(equal["chunked"], out["chunked"].X),
           f"campaign_resume: the chunked run differs from the "
-          f"uninterrupted one beyond {CHUNK_TOL}: {ec}")
+          f"uninterrupted one beyond {CHUNK_TOL}: {equal['chunked']}")
     regret = simple_regret(a.y_clean, optima)
     emit("campaign_resume", time.perf_counter() - t0,
          benchmark="Quadratic", tasks=RESUME_TASKS, points=RESUME_POINTS,
@@ -1145,6 +1213,263 @@ def phase_experiment(device="cuda"):
     launches = launches_now()
     emit("experiment", time.perf_counter() - t0, submit=submit,
          tables=[grid_line, nn_line], launches=launches)
+    return launches
+
+
+def peak_memory(device):
+    return (torch.cuda.max_memory_allocated(device)
+            if torch.device(device).type == "cuda" else None)
+
+
+def reset_peak_memory(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def worker_args():
+    """The sharded phase's study-sharded campaign as the worker's
+    arguments: Branin at SHARD_B's width, the CampaignConfig defaults,
+    ``mll_method="sweep"``, META_RESTARTS restarts of SHARD_META_STEPS
+    steps."""
+    b = SHARD_B
+    return ["--benchmark", "Branin", "--studies", str(b["studies"]),
+            "--evals", str(b["evals"]), "--tasks", str(b["tasks"]),
+            "--points", str(b["points"]), "--sigma", str(b["sigma"]),
+            "--fit-steps", str(CampaignConfig().fit_steps),
+            "--meta-fit-steps", str(SHARD_META_STEPS),
+            "--meta-fit-restarts", str(META_RESTARTS),
+            "--mll-method", "sweep"]
+
+
+def launch_ranks(device, inputs: Path, outs) -> list:
+    """The study-sharded campaign as ``len(outs)`` gloo ranks of
+    ``distributed_worker`` sharing ``device``, on a free port; waits at most
+    SHARD_RANK_TIMEOUT s and fails, every rank stopped, if a rank fails or
+    runs out of time.  Returns each rank's JSON line."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "scamlgp_tpu_torch.distributed_worker",
+         "--process-id", str(rank), "--num-processes", str(len(outs)),
+         "--coordinator", f"127.0.0.1:{port}", "--device", str(device),
+         "--inputs", str(inputs), "--out", str(out)] + worker_args(),
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank, out in enumerate(outs)]
+    logs, deadline = [], time.monotonic() + SHARD_RANK_TIMEOUT
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))[0])
+            except subprocess.TimeoutExpired:
+                check(False, f"sharded: a rank ran past "
+                      f"{SHARD_RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"sharded: rank {rank} exited {p.returncode}:\n{log[-3000:]}")
+    return [json.loads([line for line in log.splitlines()
+                        if line.startswith("{")][-1]) for log in logs]
+
+
+def phase_sharded(device="cuda"):
+    """Task- and study-sharded ScaML-GP over slots on one device; returns
+    the phase's launches of every kernel, the ranks' included."""
+    t0 = time.perf_counter()
+    reset_launches()
+    scfg, tcfg = gp.source_gp_config(), gp.target_gp_config()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+
+    # (a) the many-task regime, the task axis over SHARD_TASK_SLOTS slots
+    a = SHARD_A
+    ta = time.perf_counter()
+    reset_peak_memory(device)
+    fn, tp, md, _ = campaign_inputs_from_benchmark(
+        Quadratic, [a["points"]] * a["tasks"], [0], noise_std=a["sigma"],
+        dtype=torch.float32, device=device)
+    data = model_lib.TaskData(*[leaf[0] for leaf in md])
+    mesh = make_mesh(study=1, task=SHARD_TASK_SLOTS,
+                     devices=local_slots(device, SHARD_TASK_SLOTS))
+    M, _, d = data.X.shape
+    warm = gp.init_params(scfg, d, torch.float32, batch_shape=(M,))
+    draws = gp.sample_params(scfg, torch.Generator().manual_seed(0), d,
+                             torch.float32, batch_shape=(M, META_RESTARTS))
+    init = fit_lib.stack_restarts(warm, draws, batch_ndim=1)
+    tf = time.perf_counter()
+    single = model_lib.meta_fit_task_stack(
+        data, scfg, num_steps=SHARD_META_STEPS, mll_method="sweep",
+        init_stack=fit_lib.tree_map(lambda leaf: leaf.to(device), init))
+    sync(device)
+    single_s = time.perf_counter() - tf
+    tf = time.perf_counter()
+    sharded = scamlgp_sharded.meta_fit_sharded(
+        data, scfg, None, mesh, num_steps=SHARD_META_STEPS,
+        mll_method="sweep", init_stack=init)
+    sync(device)
+    sharded_s = time.perf_counter() - tf
+
+    def objective(params):
+        return meta_fit_split.map_objective64(scfg, params, data)
+
+    sharded_params = fit_lib.tree_map(lambda leaf: leaf[:M], sharded.params)
+    o_1, o_s = objective(single.params), objective(sharded_params)
+    o_warm = objective(fit_lib.tree_map(lambda leaf: leaf.to(device), warm))
+    gaps = (o_s - o_1).abs() / o_1.abs().clamp_min(1.0)
+    p90 = torch.quantile(gaps, 0.9).item()
+    check(bool(torch.isfinite(gaps).all())
+          and gaps.median().item() <= SHARD_META_TOL["median"]
+          and p90 <= SHARD_META_TOL["p90"] and bool((o_s <= o_warm).all()),
+          f"sharded: the task-sharded meta-fit's MAP objectives lie "
+          f"{gaps.median().item()} (median), {p90} (90th percentile) from "
+          f"the one-batch fit's (bounds {SHARD_META_TOL}), or above their "
+          f"warm start in {int((o_s > o_warm).sum())} tasks")
+    worst = torch.argsort(gaps, descending=True)[:4].tolist()
+    g = torch.Generator().manual_seed(1)
+    f32 = torch.float32
+    tX = torch.rand((a["target_points"], d), generator=g, dtype=f32)
+    tX = tX.to(device)
+    clean = fn(tX, {k: v[0] for k, v in tp.items()})
+    ty = clean + a["sigma"] * torch.randn(len(tX), generator=g,
+                                          dtype=f32).to(device)
+    tmask = torch.ones(len(tX), dtype=f32, device=device)
+    state = scamlgp_sharded.build_sharded_target(sharded, scfg, tX, ty,
+                                                 tmask, mesh)
+    model = model_lib.build_scamlgp(
+        fit_lib.tree_map(lambda leaf: leaf[:M], sharded), scfg, tX, ty,
+        tmask)
+    norm_rel = max(((state.out_mean - model.out_mean).abs()
+                    / model.out_mean.abs()).item(),
+                   ((state.out_std - model.out_std).abs()
+                    / model.out_std.abs()).item())
+    check(norm_rel <= SHARD_NORM_RTOL,
+          f"sharded: the slot-summed normalizer lies {norm_rel} from the "
+          f"unsharded model's (rtol {SHARD_NORM_RTOL})")
+    p0 = model_lib.init_target_params(tcfg, len(sharded.alpha), d,
+                                      torch.float32, device)
+    tf = time.perf_counter()
+    fitted = scamlgp_sharded.fit_target_sharded(
+        state, tcfg, p0, mesh, num_steps=SHARD_TARGET_STEPS)
+    sync(device)
+    target_s = time.perf_counter() - tf
+
+    def real(p):
+        return model_lib.TargetParams(raw_weights=p.raw_weights[:M], gp=p.gp)
+
+    before = model_lib.scamlgp_map_objective(model, tcfg, real(p0)).item()
+    after = model_lib.scamlgp_map_objective(model, tcfg,
+                                            real(fitted)).item()
+    check(bool(torch.isfinite(fitted.raw_weights).all()) and after < before,
+          f"sharded: the task-sharded target fit took the unsharded "
+          f"objective from {before} to {after}")
+    leg_a = {"seconds": time.perf_counter() - ta,
+             "meta_fit_one_batch_s": single_s, "meta_fit_sharded_s": sharded_s,
+             "fit_target_sharded_s": target_s,
+             "peak_memory_bytes": peak_memory(device),
+             "objective_gap_max": gaps.max().item(),
+             "objective_gap_median": gaps.median().item(),
+             "objective_gap_p90": p90,
+             "tasks_gap_over_2e-2": int((gaps > 2e-2).sum()),
+             "tasks_sharded_lower_higher": [
+                 int((o_s < o_1 - 1e-6 * o_1.abs().clamp_min(1.0)).sum()),
+                 int((o_s > o_1 + 1e-6 * o_1.abs().clamp_min(1.0)).sum())],
+             "objective_sum_one_batch_sharded": [o_1.sum().item(),
+                                                 o_s.sum().item()],
+             "tasks_equal_params": int(meta_fit_split.same_params(
+                 single.params, sharded_params).sum()),
+             # (task, one-batch, sharded, warm-start objective)
+             "largest_gaps": [[i, o_1[i].item(), o_s[i].item(),
+                               o_warm[i].item()] for i in worst],
+             "normalizer_max_rel": norm_rel,
+             "target_objective_init_fitted": [before, after],
+             "sweep_inverse_launches": launches_now()["sweep_inverse"]}
+
+    # (b) the studies of Branin T8 N_m=32: unsharded, a (2, 1) mesh in this
+    # process, two gloo ranks sharing the device
+    b = SHARD_B
+    _, tp, md, optima = campaign_inputs_from_benchmark(
+        Branin, [b["points"]] * b["tasks"], range(b["studies"]),
+        noise_std=b["sigma"], dtype=torch.float32, device=device,
+        optimum_method="device")
+    inputs = SHARD_DIR / "inputs.npz"
+    distributed_worker.save_campaign_inputs(inputs, tp, md, optima)
+    kw = distributed_worker.campaign_kwargs(
+        distributed_worker.build_parser().parse_args(
+            ["--process-id", "0", "--num-processes", "1", "--out", "-"]
+            + worker_args()))
+    fn = distributed_worker.TORCH_FUNCTIONS["Branin"]
+    runs, legs = {}, {}
+    for name, mesh in (("unsharded", None),
+                       ("mesh_2x1", make_mesh(
+                           study=2, devices=local_slots(device, 2)))):
+        tr = time.perf_counter()
+        reset_peak_memory(device)
+        before = launches_now()["sweep_inverse"]
+        runs[name] = run_campaign(fn, tp, md, mesh=mesh, device=device,
+                                  **kw)
+        sync(device)
+        legs[name] = {"seconds": time.perf_counter() - tr,
+                      "meta_fit_s": runs[name].meta_fit_seconds,
+                      "iteration_s": runs[name].iteration_seconds,
+                      "peak_memory_bytes": peak_memory(device),
+                      "sweep_inverse_launches":
+                          launches_now()["sweep_inverse"] - before,
+                      "sweep_inverse_meta_fit":
+                          runs[name].launches["sweep_inverse"][0],
+                      "sweep_inverse_per_iteration":
+                          runs[name].launches["sweep_inverse"][1:]}
+    launches = launches_now()
+    tr = time.perf_counter()
+    outs = [SHARD_DIR / f"rank{r}.npz" for r in range(2)]
+    ranks = launch_ranks(device, inputs, outs)
+    legs["ranks_2"] = {"seconds": time.perf_counter() - tr, "ranks": ranks}
+    for line in ranks:
+        for k, n in line["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    z = [np.load(p) for p in outs]
+    idx = np.concatenate([f["idx"] for f in z])
+    check(sorted(idx.tolist()) == list(range(b["studies"])),
+          f"sharded: the ranks' rows cover studies {sorted(idx.tolist())}")
+    order = np.argsort(idx)
+    runs["ranks_2"] = types.SimpleNamespace(**{
+        k: torch.as_tensor(np.concatenate([f[k] for f in z])[order],
+                           device=device) for k in ("X", "y", "y_clean")})
+    ref = runs["unsharded"]
+    equal = {}
+    # the mesh and the ranks run the same batches: bit for bit so far, held
+    # to CHUNK_TOL as each is to the unsharded run
+    for name, (first, second) in (("mesh_2x1", ("unsharded", "mesh_2x1")),
+                                  ("ranks_2", ("unsharded", "ranks_2")),
+                                  ("ranks_vs_mesh", ("mesh_2x1", "ranks_2"))):
+        equal[name] = compare_runs(runs[first], runs[second])
+        check(within_chunk_tol(equal[name], runs[second].X),
+              f"sharded: the {second} run differs from the {first} one "
+              f"beyond {CHUNK_TOL}: {equal[name]}")
+    check(bool(torch.isfinite(ref.X).all())
+          and bool(((ref.X >= 0) & (ref.X <= 1)).all())
+          and bool(torch.isfinite(ref.y_clean).all()),
+          "sharded: proposals or losses out of range")
+    check(sum(line["launches"]["sweep_inverse"] for line in ranks) > 0
+          or torch.device(device).type != "cuda",
+          "sharded: the ranks launched sweep_inverse no time")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    emit("sharded", time.perf_counter() - t0,
+         task_sharded=dict(benchmark="Quadratic", tasks=a["tasks"],
+                           points=a["points"], d=1, sigma=a["sigma"],
+                           task_slots=SHARD_TASK_SLOTS,
+                           target_steps=SHARD_TARGET_STEPS, **leg_a),
+         study_sharded=dict(benchmark="Branin", tasks=b["tasks"],
+                            points=b["points"], d=2, sigma=b["sigma"],
+                            studies=b["studies"], evaluations=b["evals"],
+                            legs=legs, equal_to_unsharded=equal),
+         launches=launches)
     return launches
 
 
@@ -1562,6 +1887,7 @@ def main():
     by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["posterior"] = phase_posterior()
     by_slice["experiment"] = phase_experiment()
+    by_slice["sharded"] = phase_sharded()
     sampler_times = posterior_times()
     by_slice["bench_sweep_n"] = phase_bench()
     by_slice["driver"] = phase_driver()

@@ -31,7 +31,11 @@ which keeps the host runner on its CPU backend, the port routes by the
 experiment alone.  The host runner runs its studies in this process, one
 after another, except on the CPU with ``max_workers > 1``, where a process
 pool runs them as the reference does.  No mesh: campaigns run on one
-device.
+device, also where there are several cards (the JAX package lays a study
+mesh over them).  The port's study rows run one after another, each
+syncing with the host on every L-BFGS trip, so on one card a (2, 1) mesh
+took 1.65x the batched campaign (PERF.md, the sharding layer), and rows
+on distinct cards do not overlap yet.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Carry parameters and state across between the JAX package and the port.
 
 The JAX package's structures (``GPParams``, ``TargetParams``, ``TaskData``,
-``SourceStack``, ``ScaMLGP``, ``MeanFieldQ``) arrive as dicts of numpy
-arrays keyed by their NamedTuple field names, nested for nested
-structures; the functions here build the
-port's structures of the same names from them, so that both packages
-compute the same thing.  ``to_numpy_dict`` goes the other way for any
+``SourceStack``, ``ScaMLGP``, ``MeanFieldQ``, ``ShardedTargetState``)
+arrive as dicts of numpy arrays keyed by their NamedTuple field names,
+nested for nested structures; the functions here build the port's
+structures of the same names from them, so that both packages compute the
+same thing.  ``to_numpy_dict`` goes the other way for any
 NamedTuple of arrays.
 """
 
@@ -18,6 +18,7 @@ from scamlgp_tpu_torch.config import resolve_device
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.models import vi
+from scamlgp_tpu_torch.parallel.scamlgp_sharded import ShardedTargetState
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -78,3 +79,12 @@ def to_numpy_dict(tree) -> dict:
         else:
             out[name] = np.asarray(value)
     return out
+
+
+def sharded_target_state(d: dict, dtype=torch.float64,
+                         device=None) -> ShardedTargetState:
+    """A task-sharded target state
+    (``parallel.scamlgp_sharded.ShardedTargetState``) from its fields."""
+    dev = resolve_device(device)
+    return ShardedTargetState(*[_t(d[f], dtype, dev)
+                                for f in ShardedTargetState._fields])

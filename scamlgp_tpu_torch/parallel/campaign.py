@@ -8,6 +8,13 @@ batched Adam, and the benchmark evaluation.  The host loops over iterations
 only; with ``study_chunk`` it runs the iterations of one chunk of studies
 after another.
 
+With a ``mesh`` (``parallel/mesh.py``) the studies are split over its
+study rows, padded to a multiple of them with copies of study 0: each row
+of this process runs its studies' meta-fit and iterations on the row's
+first slot, the rows of one iteration one after another, and on a mesh
+over several processes (``parallel/distributed.py``) a process runs its
+own rows only.
+
 The target fit is ``CampaignConfig.fit_method``'s: ``"map"``, the MAP fits
 of all S studies x restarts as one batched L-BFGS; ``"hmc"`` or
 ``"nuts"``, the posterior draws of all S studies x chains as one batch of
@@ -63,6 +70,7 @@ from scamlgp_tpu_torch.models import hmc as hmc_lib
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.models import vi as vi_lib
 from scamlgp_tpu_torch.ops import inverse_mll
+from scamlgp_tpu_torch.parallel.mesh import Mesh, cat_rows, pad_to_multiple
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
@@ -120,12 +128,18 @@ class CampaignResult(NamedTuple):
     #                              meta-fit's Cholesky-route refit (their
     #                              study's predictions are then not finite)
     mask: torch.Tensor     # (S, E) 1 where the evaluation is filled: all
-    #                        1 unless ``stop_after`` ended the run early
+    #                        1 unless ``stop_after`` ended the run early or
+    #                        another process holds the study
     samples: Optional[m.TargetParams] = None  # a posterior fit's mixture
     #                        draws (S, mixture_samples, ...) of the last
     #                        iteration this call ran (NaN for studies it
     #                        ran none of)
-    stack: Optional[m.SourceStack] = None     # the fitted source GPs
+    stack: Optional[m.SourceStack] = None     # the fitted source GPs of
+    #                        the studies held (all S but on a mesh over
+    #                        several processes), in ``studies``' order
+    studies: Optional[torch.Tensor] = None    # the studies whose rows this
+    #                        call ran (all S but on a mesh over several
+    #                        processes)
 
 
 class CampaignState(NamedTuple):
@@ -174,26 +188,39 @@ def _rows(tree, c0: int, c1: int):
         lambda leaf: None if leaf is None else leaf[c0:c1], tree)
 
 
+def _pad_rows(tree, pad: int):
+    """Every leaf (the study axis first) with ``pad`` copies of its row 0
+    appended; absent (None) members stay absent."""
+    if not pad:
+        return tree
+    return fit_lib.tree_map(
+        lambda leaf: None if leaf is None else torch.cat(
+            [leaf, leaf[:1].expand((pad,) + leaf.shape[1:])]), tree)
+
+
+def _to(tree, device):
+    """Every leaf of a NamedTuple tree on ``device``."""
+    return fit_lib.tree_map(
+        lambda leaf: None if leaf is None else leaf.to(device), tree)
+
+
 def iteration_draws(generator: torch.Generator, cfg: CampaignConfig,
                     target_cfg: gp.GPConfig, S: int, M: int, d: int,
                     dtype, device) -> IterationDraws:
     """One iteration's draws for all S studies, in this order: the target
     fit's (a MAP fit's restarts; the chain starts, then the HMC or NUTS
     draws; the ADVI draws), the raw candidates, the noise."""
-    def put(tree):
-        return fit_lib.tree_map(lambda leaf: leaf.to(device), tree)
-
     restarts = chains = sampler = None
     D = M + d + 2
     if cfg.fit_method == "map":
-        restarts = put(m.sample_target_params(
+        restarts = _to(m.sample_target_params(
             target_cfg, generator, M, d, dtype,
-            batch_shape=(S, cfg.fit_restarts)))
+            batch_shape=(S, cfg.fit_restarts)), device)
     elif cfg.fit_method in ("hmc", "nuts"):
         batch = (S, cfg.hmc_chains)
         T = cfg.hmc_warmup + cfg.hmc_samples
-        chains = put(m.sample_target_params(target_cfg, generator, M, d,
-                                            dtype, batch_shape=batch))
+        chains = _to(m.sample_target_params(target_cfg, generator, M, d,
+                                            dtype, batch_shape=batch), device)
         sampler = (hmc_lib.nuts_draws(generator, batch, T, D,
                                       cfg.hmc_max_depth, dtype, device)
                    if cfg.fit_method == "nuts" else
@@ -411,7 +438,8 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                  target_cfg: Optional[gp.GPConfig] = None,
                  cfg: CampaignConfig = CampaignConfig(),
                  meta_fit_restarts: int = 3, meta_fit_steps: int = 50,
-                 meta_fit_chunks: int = 1, loop: str = "host", mesh=None,
+                 meta_fit_chunks: int = 1, loop: str = "host",
+                 mesh: Optional[Mesh] = None,
                  checkpoint_path=None, checkpoint_every: int = 10,
                  stop_after: Optional[int] = None,
                  study_chunk: Optional[int] = None,
@@ -428,13 +456,23 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             each iteration's (``iteration_generator``).
         meta_fit_chunks: split the (S*M)-task meta-fit into this many equal
             sequential batches (must divide S).  The draws are made for all
-            tasks first, so the result does not depend on the split.
+            tasks first, so the result does not depend on the split.  Not
+            with a mesh.
+        mesh: a ``parallel.mesh.Mesh`` whose study axis splits the studies:
+            S is padded to a multiple of its study extent by repeating
+            study 0, and each study row of this process runs its studies,
+            meta-fit and iterations, on the row's first slot (the task axis
+            is not used here).  Every draw is made for all S studies and
+            sliced, so a study's result does not depend on the layout.  On
+            a mesh over several processes a process runs its own rows
+            only: the rows of other processes' studies stay 0, with
+            ``mask`` 0, and ``studies`` lists the studies it holds.
         checkpoint_path: write the campaign's state (``CampaignState``) to
             ``<checkpoint_path>.npz`` before the first iteration, every
             ``checkpoint_every`` iterations and at the end; if that file
             exists, the campaign resumes from it, its target tasks and
             meta-data taking the place of ``task_params`` and
-            ``meta_data``.
+            ``meta_data``.  Not on a mesh over several processes.
         stop_after: checkpoint and return after this many iterations (resume
             by calling again with the same ``checkpoint_path``).  Not with
             study chunks.
@@ -444,15 +482,30 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             (the draws are made for all S and sliced).  A chunk resumes
             from the iterations that its studies' ``mask`` shows done, so
             a checkpoint written chunked resumes only chunked, with the
-            same ``study_chunk``.
-        device: where the campaign runs; ``cuda`` when left out.
+            same ``study_chunk``.  Not with a mesh.
+        device: where the inputs and results live; ``cuda`` when left out,
+            or, with a mesh, the first slot of this process.
     """
     if loop != "host":
         raise NotImplementedError(f"loop={loop!r}: only 'host' is ported")
-    if mesh is not None:
-        raise NotImplementedError("study sharding over a mesh is not ported")
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every={checkpoint_every} < 1")
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        if study_chunk:
+            raise ValueError("study_chunk does not combine with a mesh: its "
+                             "study rows split the studies")
+        if meta_fit_chunks != 1:
+            raise ValueError("meta_fit_chunks does not combine with a mesh: "
+                             "each study row fits its own tasks")
+        if checkpoint_path is not None and mesh.num_processes > 1:
+            raise NotImplementedError(
+                "checkpoints of a campaign over several processes are not "
+                "ported: a process holds its own studies' rows only")
+        if device is None:
+            device = mesh.task_devices()[0]
     device = resolve_device(device)
     source_cfg = source_cfg or gp.source_gp_config()
     target_cfg = target_cfg or gp.target_gp_config()
@@ -488,49 +541,78 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             raise ValueError(f"the checkpoint at {checkpoint_path} was "
                              f"written with seed {int(state.seed)}, not "
                              f"{seed}")
-        task_params, meta_data = state.task_params, state.meta_data
     generator = torch.Generator(device="cpu").manual_seed(seed)
+
+    # ---- the lanes (first study, end, device) that this process runs: the
+    # chunks, the mesh's study rows, or all S on one device; a mesh pads
+    # every study-axis tensor with copies of study 0 -------------------------
+    if mesh is None:
+        pad = 0
+        lanes = ([(c0, min(c0 + chunk, S), device)
+                  for c0 in range(0, S, chunk)] if chunk else [(0, S, device)])
+    else:
+        pad = pad_to_multiple(S, mesh.shape["study"]) - S
+        mine = mesh.local_rows()
+        lanes = [(a, b, mesh.devices[r, 0])
+                 for r, a, b in mesh.study_slices(S) if r in mine]
+    held = [s for a, b, _ in lanes for s in range(a, min(b, S))]
+    task_params = {k: _pad_rows(v, pad) for k, v in state.task_params.items()}
+    meta_data = _pad_rows(state.meta_data, pad)
+    Xbuf, ybuf, yclean, mask = (_pad_rows(t, pad) for t in (
+        state.X, state.y, state.y_clean, state.mask))
+    params = _pad_rows(state.params, pad)
 
     # ---- meta-fit: (study, task) folded into one task axis ----------------
     t0 = time.perf_counter()
     counts = [inverse_mll.kernel_launches()]
     with GLOBAL_TIMER("campaign_meta_fit", device):
-        flat = m.TaskData(*[leaf.reshape((T,) + leaf.shape[2:])
+        flat = m.TaskData(*[leaf.reshape((-1,) + leaf.shape[2:])
                             for leaf in meta_data])
         warm = gp.init_params(source_cfg, d, dtype, device, batch_shape=(T,))
         sampled = gp.sample_params(source_cfg, generator, d, dtype,
                                    batch_shape=(T, meta_fit_restarts))
-        init_stack = fit_lib.stack_restarts(
-            warm, fit_lib.tree_map(lambda leaf: leaf.to(device), sampled), 1)
-        csz = T // meta_fit_chunks
-        parts = []
-        for c in range(meta_fit_chunks):
-            sl = slice(c * csz, (c + 1) * csz)
-            parts.append(m.meta_fit_task_stack(
-                m.TaskData(*[leaf[sl] for leaf in flat]), source_cfg,
-                num_steps=meta_fit_steps, mll_method=cfg.mll_method,
-                init_stack=fit_lib.tree_map(lambda leaf: leaf[sl],
-                                            init_stack),
-                route_blocked=cfg.route_blocked,
-                sweep_variant=cfg.sweep_variant))
-        flat_stack = fit_lib.tree_map(lambda *ls: torch.cat(ls), *parts)
-        stack = fit_lib.tree_map(
-            lambda leaf: leaf.reshape((S, M) + leaf.shape[1:]), flat_stack)
+        init_stack = fit_lib.stack_restarts(warm, _to(sampled, device), 1)
+        init_stack = fit_lib.tree_map(
+            lambda leaf: _pad_rows(leaf.reshape((S, M) + leaf.shape[1:]),
+                                   pad).reshape((-1,) + leaf.shape[1:]),
+            init_stack)
+        if mesh is None:
+            csz = T // meta_fit_chunks
+            pieces = [(c * csz, (c + 1) * csz, device)
+                      for c in range(meta_fit_chunks)]
+        else:
+            pieces = [(a * M, b * M, dev) for a, b, dev in lanes]
+        parts = [m.meta_fit_task_stack(
+            _to(_rows(flat, a, b), dev), source_cfg,
+            num_steps=meta_fit_steps, mll_method=cfg.mll_method,
+            init_stack=_to(_rows(init_stack, a, b), dev),
+            route_blocked=cfg.route_blocked,
+            sweep_variant=cfg.sweep_variant) for a, b, dev in pieces]
+        parts = [fit_lib.tree_map(
+            lambda leaf: leaf.reshape((-1, M) + leaf.shape[1:]), part)
+            for part in parts]
+        stack = cat_rows(parts, device)
+        if mesh is None:
+            lane_stacks = [_rows(stack, a, b) for a, b, _ in lanes]
+        else:   # the rows of the studies held, padding left out
+            lane_stacks = parts
+            keep = torch.as_tensor([s < S for a, b, _ in lanes
+                                    for s in range(a, b)], device=device)
+            stack = fit_lib.tree_map(lambda leaf: leaf[keep], stack)
     meta_fit_seconds = time.perf_counter() - t0
     counts.append(inverse_mll.kernel_launches())
-    nonfinite = ~(torch.isfinite(flat_stack.chol).flatten(1).all(-1)
-                  & torch.isfinite(flat_stack.alpha).all(-1))
+    nonfinite = ~(torch.isfinite(stack.chol).flatten(2).all(-1)
+                  & torch.isfinite(stack.alpha).all(-1))
 
     # ---- BO loop ----------------------------------------------------------
-    Xbuf, ybuf, yclean, mask, params = (state.X, state.y, state.y_clean,
-                                        state.mask, state.params)
-
     def save():
         with GLOBAL_TIMER("campaign_checkpoint", device):
-            done = int(mask.sum(-1).min())
+            done = int(mask[:S].sum(-1).min())
             ckpt.save_pytree(checkpoint_path, CampaignState(
-                task_params, meta_data, Xbuf, ybuf, yclean, mask, params,
-                torch.tensor(seed), torch.tensor(done)))
+                {k: v[:S] for k, v in task_params.items()},
+                _rows(meta_data, 0, S), Xbuf[:S], ybuf[:S], yclean[:S],
+                mask[:S], _rows(params, 0, S), torch.tensor(seed),
+                torch.tensor(done)))
 
     if checkpoint_path is not None and not resumed:
         save()   # pins the unseeded targets on disk before any iteration
@@ -540,14 +622,16 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             "checkpoint has per-study progress at different iterations "
             "(written by a study-chunked campaign); resume with the same "
             "study_chunk setting instead of study_chunk=0")
-    bounds = ([(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
-              if chunk else [(0, S)])
+    # chunks run one after another; a mesh's rows run each iteration in turn
+    pairs = list(zip(lanes, lane_stacks))
+    groups = [[pair] for pair in pairs] if chunk else [pairs]
     iteration_seconds = []
     stopped = False
     samples = None
     with GLOBAL_TIMER("campaign_bo_loop", device):
-        for c0, c1 in bounds:
-            d_c = done[c0:c1]
+        for group in groups:
+            (c0, c1, _), _ = group[0]
+            d_c = torch.cat([done[a:b] for (a, b, _), _ in group])
             if int(d_c.max()) != int(d_c.min()):
                 raise ValueError(
                     "checkpoint has per-study progress at different "
@@ -558,53 +642,76 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             i0 = int(d_c.min())
             if i0 >= E:
                 continue
-            st_c, tp_c = _rows(stack, c0, c1), {k: v[c0:c1] for k, v in
-                                                task_params.items()}
-            Xb, yb, yc, mk = (t[c0:c1] for t in (Xbuf, ybuf, yclean, mask))
-            pr = _rows(params, c0, c1)
+            # each lane's rows on its device
+            runs = []
+            for (a, b, dev), st in group:
+                runs.append({"rows": (a, b), "device": dev, "stack": st,
+                             "task_params": {k: v[a:b].to(dev) for k, v in
+                                             task_params.items()},
+                             "bufs": [t[a:b].to(dev) for t in
+                                      (Xbuf, ybuf, yclean, mask)],
+                             "params": _to(_rows(params, a, b), dev),
+                             "samples": None})
             for i in range(i0, E):
                 t0 = time.perf_counter()
                 with GLOBAL_TIMER("campaign_iteration", device):
                     with GLOBAL_TIMER("iteration_draws", device):
-                        draws = _rows(iteration_draws(
+                        draws = _pad_rows(iteration_draws(
                             iteration_generator(seed, i), cfg, target_cfg, S,
-                            M, d, dtype, device), c0, c1)
-                    Xb, yb, yc, mk, pr, smp = run_iteration(
-                        benchmark_fn, st_c, tp_c, Xb, yb, yc, mk, pr, draws,
-                        i, source_cfg, target_cfg, cfg)
+                            M, d, dtype, device), pad)
+                    for run in runs:
+                        a, b = run["rows"]
+                        *run["bufs"], run["params"], run["samples"] = (
+                            run_iteration(
+                                benchmark_fn, run["stack"],
+                                run["task_params"], *run["bufs"],
+                                run["params"],
+                                _to(_rows(draws, a, b), run["device"]), i,
+                                source_cfg, target_cfg, cfg))
                 iteration_seconds.append(time.perf_counter() - t0)
                 counts.append(inverse_mll.kernel_launches())
                 stopped = stop_after is not None and i + 1 >= i0 + stop_after
                 last = i + 1 == E or stopped
                 if last or (checkpoint_path is not None
                             and (i + 1) % checkpoint_every == 0):
-                    for full, part in zip(
-                            (Xbuf, ybuf, yclean, mask,
-                             *fit_lib.tree_leaves(params)),
-                            (Xb, yb, yc, mk, *fit_lib.tree_leaves(pr))):
-                        full[c0:c1] = part
+                    for run in runs:
+                        a, b = run["rows"]
+                        for full, part in zip(
+                                (Xbuf, ybuf, yclean, mask,
+                                 *fit_lib.tree_leaves(params)),
+                                (*run["bufs"],
+                                 *fit_lib.tree_leaves(run["params"]))):
+                            full[a:b] = part.to(full.device)
                     if checkpoint_path is not None:
                         save()
-                if last and smp is not None:
+                for run in runs:
+                    smp = run["samples"]
+                    if not last or smp is None:
+                        continue
                     if samples is None:   # NaN for studies not run here
                         samples = fit_lib.tree_map(
                             lambda leaf: leaf.new_full(
-                                (S,) + leaf.shape[1:], torch.nan), smp)
+                                (S + pad,) + leaf.shape[1:], torch.nan,
+                                device=device), smp)
+                    a, b = run["rows"]
                     for full, part in zip(fit_lib.tree_leaves(samples),
                                           fit_lib.tree_leaves(smp)):
-                        full[c0:c1] = part
+                        full[a:b] = part.to(device)
                 if stopped:
                     break
             if stopped:
                 break
-    return CampaignResult(X=Xbuf, y=ybuf, y_clean=yclean,
+    return CampaignResult(X=Xbuf[:S], y=ybuf[:S], y_clean=yclean[:S],
                           meta_fit_seconds=meta_fit_seconds,
                           iteration_seconds=iteration_seconds,
                           launches={k: [b[k] - a[k] for a, b in
                                         zip(counts, counts[1:])]
                                     for k in counts[0]},
                           nonfinite_source_tasks=int(nonfinite.sum()),
-                          mask=mask, samples=samples, stack=stack)
+                          mask=mask[:S],
+                          samples=(None if samples is None
+                                   else _rows(samples, 0, S)),
+                          stack=stack, studies=torch.tensor(held))
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

@@ -6,7 +6,8 @@ with the JAX package's committed regret rows.
         [--mll-method sweep|chol|chol64] [--fit-method map|hmc|nuts|vi]
         [--route-blocked]
         [--sweep-variant select] [--optimum-method shgo] [--seed 0]
-        [--study-chunk K] [--checkpoint PATH] [--stop-after N]
+        [--study-chunk K] [--shard-studies N] [--checkpoint PATH]
+        [--stop-after N]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
         [--driver campaign|sequential]
 
@@ -41,6 +42,12 @@ another.  ``--checkpoint PATH`` writes the campaign's state to
 optima to ``PATH_optima.npy``; run the same command again to resume from
 it.  ``--stop-after N`` (not with ``--study-chunk``) returns after N
 iterations; the JSON line then summarizes the iterations completed.
+
+``--shard-studies N`` splits the studies over a study mesh of N slots
+(``parallel.mesh``): the card repeated N times, or N cards where
+``--device cuda`` finds that many (``mesh.local_slots``), each slot its
+rows' meta-fit and iterations, one after another on one card.  Not with
+``--study-chunk``.
 
 ``--driver sequential`` runs the same experiment study by study through
 the sequential driver instead, as the reference runs it: for each study
@@ -82,6 +89,7 @@ from scamlgp_tpu_torch.parallel.campaign import (
     run_campaign,
     simple_regret,
 )
+from scamlgp_tpu_torch.parallel.mesh import local_slots, make_mesh
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
@@ -219,6 +227,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--study-chunk", type=int, default=None,
                     help="run the BO loop over chunks of at most this many "
                          "studies, one after another (0: all at once)")
+    ap.add_argument("--shard-studies", type=int, default=None, metavar="N",
+                    help="split the studies over a study mesh of N slots")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="checkpoint the campaign at PATH.npz; resumes "
                          "from it when it exists")
@@ -254,10 +264,13 @@ def main(argv=None) -> dict:
                          mll_method=args.mll_method,
                          route_blocked=args.route_blocked,
                          sweep_variant=args.sweep_variant)
+    mesh = (make_mesh(study=args.shard_studies, task=1,
+                      devices=local_slots(device, args.shard_studies))
+            if args.shard_studies else None)
     GLOBAL_TIMER.reset()
     t0 = time.perf_counter()
     res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device,
-                       checkpoint_path=args.checkpoint,
+                       mesh=mesh, checkpoint_path=args.checkpoint,
                        stop_after=args.stop_after,
                        study_chunk=args.study_chunk)
     run_s = time.perf_counter() - t0
@@ -277,7 +290,11 @@ def main(argv=None) -> dict:
         "route_blocked": args.route_blocked,
         "sweep_variant": args.sweep_variant,
         "optimum_method": args.optimum_method,
-        "study_chunk": args.study_chunk, "checkpoint": args.checkpoint,
+        "study_chunk": args.study_chunk,
+        "shard_studies": args.shard_studies,
+        "mesh_slots": (None if mesh is None
+                       else [str(dv) for dv in mesh.devices[:, 0]]),
+        "checkpoint": args.checkpoint,
         "device": str(device), "card": _card(device),
         "setup_s": setup_s, "run_s": run_s,
         "meta_fit_s": res.meta_fit_seconds,

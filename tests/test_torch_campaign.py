@@ -39,6 +39,7 @@ from scamlgp_tpu_torch.models import fit as tfit
 from scamlgp_tpu_torch.models import gp as tgp
 from scamlgp_tpu_torch.models import scamlgp as tm
 from scamlgp_tpu_torch.parallel import campaign as tc
+from scamlgp_tpu_torch.parallel.mesh import Mesh, make_mesh
 from tests import torch_posterior_case as case
 from tests.torch_threads import one_thread  # noqa: F401
 
@@ -266,9 +267,83 @@ def test_simple_regret_matches():
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
                                     dict(loop="device")])
 def test_unported_options_raise(inputs, kwargs):
+    """``loop="device"`` is not ported; a mesh that is not a
+    ``parallel.mesh.Mesh`` is refused."""
     _, (fn, tp, md, _) = inputs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if "mesh" in kwargs
+                       else NotImplementedError):
         tc.run_campaign(fn, tp, md, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("fit_method", ["map", "vi"])
+def test_study_sharded_campaign_equals_unsharded(fit_method):
+    """S=6 studies over a mesh of 4 study slots (padded to 8 with copies of
+    study 0, the last slot all padding), each slot its rows on a ``cpu``
+    slot, with a MAP and with a posterior (ADVI) fit.  The draws are made
+    for all S and sliced, so each slot runs what a study chunk of its rows
+    runs: the mesh equals ``study_chunk=2`` bit for bit.  It equals the
+    unsharded campaign to 1e-12 only: a batch of 2 studies takes other
+    vector tails than one of 6 in CPU kernels such as ``aten.sigmoid``,
+    which moves a last bit of some runs' later proposals, as it does a
+    chunked run's."""
+    fn, tp, md, _ = ta.campaign_inputs_from_benchmark(
+        TBranin, [6] * 2, range(6), noise_std=1.0, dtype=F64, device="cpu")
+    cfg = tc.CampaignConfig(n_evaluations=2, fit_method=fit_method,
+                            vi_steps=8, vi_mc=3, mixture_samples=4, **CFG)
+    kw = dict(seed=1, cfg=cfg, meta_fit_restarts=1, meta_fit_steps=8,
+              device="cpu")
+    a = tc.run_campaign(fn, tp, md, **kw)
+    chunked = tc.run_campaign(fn, tp, md, study_chunk=2, **kw)
+    b = tc.run_campaign(fn, tp, md, mesh=make_mesh(study=4,
+                                                   devices=["cpu"] * 4),
+                        **kw)
+    for f in ("X", "y", "y_clean", "mask"):
+        assert torch.equal(getattr(chunked, f), getattr(b, f)), f
+        close(getattr(b, f), getattr(a, f).numpy(), rtol=1e-12, atol=1e-12)
+    for x, y in zip(tfit.tree_leaves(a.stack), tfit.tree_leaves(b.stack)):
+        assert torch.equal(x, y)
+    if fit_method == "vi":
+        for x, y in zip(tfit.tree_leaves(chunked.samples),
+                        tfit.tree_leaves(b.samples)):
+            assert x.shape[0] == 6 and torch.equal(x, y)
+    assert b.studies.tolist() == list(range(6))
+    assert (b.mask == 1).all() and len(b.iteration_seconds) == 2
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(study_chunk=1), ValueError),
+    (dict(meta_fit_chunks=2), ValueError),
+    (dict(checkpoint_path="unused", ranks=[0, 1]), NotImplementedError)])
+def test_mesh_refuses(inputs, kwargs, error):
+    """A mesh takes no study chunks and no meta-fit chunks (its rows split
+    the studies), and no checkpoint over several processes (a process
+    holds its own rows only)."""
+    _, (fn, tp, md, _) = inputs
+    kwargs = dict(kwargs)
+    mesh = make_mesh(study=2, devices=["cpu"] * 2)
+    if "ranks" in kwargs:
+        mesh = Mesh(mesh.devices, ranks=kwargs.pop("ranks"), rank=0)
+    with pytest.raises(error):
+        tc.run_campaign(fn, tp, md, device="cpu", mesh=mesh, **kwargs)
+
+
+def test_study_sharded_campaign_resumes(tmp_path):
+    """A one-process mesh checkpoints as the unsharded campaign does: S=3
+    over 2 study rows (one padded study), stopped after one iteration and
+    resumed, equals the uninterrupted mesh run bit for bit."""
+    fn, tp, md, _ = ta.campaign_inputs_from_benchmark(
+        TBranin, [6] * 2, range(3), noise_std=1.0, dtype=F64, device="cpu")
+    kw = dict(seed=2, cfg=tc.CampaignConfig(n_evaluations=2, **CFG),
+              meta_fit_restarts=1, meta_fit_steps=8, device="cpu",
+              mesh=make_mesh(study=2, devices=["cpu"] * 2))
+    a = tc.run_campaign(fn, tp, md, **kw)
+    ck = tmp_path / "mesh"
+    first = tc.run_campaign(fn, tp, md, checkpoint_path=ck, stop_after=1,
+                            **kw)
+    assert first.mask.sum(-1).tolist() == [1.0] * 3
+    b = tc.run_campaign(fn, tp, md, checkpoint_path=ck, **kw)
+    for f in ("X", "y", "y_clean", "mask"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_entry_points_default_to_cuda(inputs):

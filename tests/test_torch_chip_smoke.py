@@ -348,3 +348,52 @@ def test_experiment_tables_are_seeded():
     assert nn.optimum == values.min()
     md = nn.get_meta_data(seed=3)
     assert [len(v) for v in md.values()] == [4, 4]
+
+
+def test_sharded_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The sharded phase at a CPU size (Quadratic 8 tasks x 6 points over 4
+    task slots; Branin 4 studies x 2 evaluations, 2 tasks x 6 points, short
+    fits), its plain version standing in for the kernel through a counting
+    wrapper: the task-sharded fits held to the unsharded ones, the (2, 1)
+    mesh and two gloo ranks of CPU workers equal to the unsharded
+    campaign, every study covered once, each leg's seconds and launches on
+    the line."""
+    plain = sweep.sweep_inverse_reference
+
+    def counted(A, variant="select"):
+        counted.launches[variant] += 1
+        return plain(A, variant)
+
+    counted.launches = sweep.sweep_inverse.launches
+    monkeypatch.setattr(sweep, "sweep_inverse", counted)
+    small = functools.partial(chip_smoke.CampaignConfig, fit_steps=6)
+    for name, value in (
+            ("SHARD_A", dict(tasks=8, points=6, sigma=0.05, target_points=4)),
+            ("SHARD_B", dict(studies=4, evals=2, tasks=2, points=6,
+                             sigma=1.0)),
+            ("SHARD_TARGET_STEPS", 5), ("SHARD_META_STEPS", 6),
+            ("SHARD_DIR", tmp_path / "sh"),
+            ("META_RESTARTS", 1), ("META_STEPS", 6),
+            ("CampaignConfig", small)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    launches = chip_smoke.phase_sharded("cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "sharded"
+    a, b = line["task_sharded"], line["study_sharded"]
+    assert a["task_slots"] == 4 and a["normalizer_max_rel"] <= 1e-5
+    tol = chip_smoke.SHARD_META_TOL
+    assert a["objective_gap_median"] <= tol["median"]
+    assert a["objective_gap_p90"] <= tol["p90"]
+    fitted = a["target_objective_init_fitted"]
+    assert fitted[1] < fitted[0]
+    assert list(b["legs"]) == ["unsharded", "mesh_2x1", "ranks_2"]
+    for name in ("mesh_2x1", "ranks_2"):
+        eq = b["equal_to_unsharded"][name]
+        assert eq["max_abs_diff_noise"] <= chip_smoke.CHUNK_TOL["noise"]
+    ranks = b["legs"]["ranks_2"]["ranks"]
+    assert [r["local_studies"] for r in ranks] == [2, 2]
+    assert all(r["launches"]["sweep_inverse"] == 0 for r in ranks)
+    assert launches["sweep_inverse"] == a["sweep_inverse_launches"] + sum(
+        b["legs"][k]["sweep_inverse_launches"]
+        for k in ("unsharded", "mesh_2x1")) > 0
+    assert not (tmp_path / "sh").exists()

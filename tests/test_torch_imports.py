@@ -101,7 +101,11 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "fcnet_fixed_fidelity_tabular",
             "scamlgp_tpu_torch.benchmarking.benchmarks.pd1",
             "scamlgp_tpu_torch.benchmarking.configurations._shared",
-            "scamlgp_tpu_torch.benchmarking.configurations.styles"} <= names
+            "scamlgp_tpu_torch.benchmarking.configurations.styles",
+            "scamlgp_tpu_torch.parallel.mesh",
+            "scamlgp_tpu_torch.parallel.scamlgp_sharded",
+            "scamlgp_tpu_torch.parallel.distributed",
+            "scamlgp_tpu_torch.distributed_worker"} <= names
     configurations = {n.rsplit(".", 1)[1] for n in names if n.startswith(
         "scamlgp_tpu_torch.benchmarking.configurations.")}
     assert len(configurations - {"_shared", "styles"}) == 17
