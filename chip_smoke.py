@@ -71,6 +71,23 @@ Phases, each printing one JSON line with its own seconds:
    and parameters cast to float64 (rtol 1e-6: the float32 cast of the
    result alone), and prints how far the kernel route and the float32
    systems promoted to float64 lie from that float64-assembled MLL;
+4a. device_loop: the Branin T8 N_m=32 slice's cell again, on the same
+   inputs, through ``run_campaign(loop="device")``: iteration 0 eagerly,
+   the body captured once as a CUDA graph and replayed for iterations
+   1 .. E-1, capture and replays under ``set_sync_debug_mode("error")``.
+   Its X, y and y_clean must equal the slice's host-loop result bit for
+   bit.  ``select`` must be launched in every replay: the graph's own
+   kernel nodes (``utils.cuda_graph.kernel_nodes``, read through the CUDA
+   driver API) must hold it the fixed-trip target fit's 1 + fit_steps x 20 +
+   1 times and no other hand-written kernel, as many as the wrapper
+   counted while the graph was captured and as the warm-up launched.  The
+   phase's launches are the counters' (meta-fit, warm-up) and each
+   replay's kernel nodes, never the capture's count.  One line with the
+   host loop's and the device loop's seconds an iteration, the capture
+   and instantiate seconds, the kernel nodes a replay, the launches
+   (trips) a target fit of both loops, and the peak device memory
+   (counted from a reset just before the run) without and with the
+   graph's pool;
 4b. campaign_resume: the many-task configuration (BASELINE.json config 4):
    Quadratic, 128 meta-tasks x 32 points, d=1, noise 0.05, study seeds
    0-3, float32, ``mll_method="sweep"`` (``select``), E=4, three ways:
@@ -142,7 +159,7 @@ Phases, each printing one JSON line with its own seconds:
    (SHARD_NORM_RTOL), and ``fit_target_sharded`` (SHARD_TARGET_STEPS Adam
    steps), which must lower the unsharded objective with finite weights;
    (b) the width of ``BRANIN_T8_P32_N1_SCAMLGP`` (SHARD_B: 8 meta-tasks x
-   32 points, d=2, noise 1.0, 8 studies x 3 evaluations, the
+   32 points, d=2, noise 1.0, 8 studies x 2 evaluations, the
    CampaignConfig defaults) three ways: unsharded, on a (2, 1) mesh in
    this process, and as two gloo ranks of ``distributed_worker`` sharing
    the card (subprocesses on a free port, SHARD_RANK_TIMEOUT s), whose
@@ -181,6 +198,7 @@ import io
 import json
 import logging
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -309,7 +327,7 @@ RESUME_DIR = Path(__file__).resolve().parent / "build" / "smoke_checkpoints"
 #: sequential driver, 1 study x POSTERIOR_DRIVER_EVALS a method, with its
 #: own sampler defaults
 POSTERIOR_TASKS, POSTERIOR_POINTS, POSTERIOR_SIGMA = 8, 32, 1.0
-POSTERIOR_STUDIES, POSTERIOR_EVALS, POSTERIOR_DRIVER_EVALS = 4, 2, 3
+POSTERIOR_STUDIES, POSTERIOR_EVALS, POSTERIOR_DRIVER_EVALS = 4, 2, 2
 POSTERIOR_NUTS_EVALS = 1
 POSTERIOR_METHODS, POSTERIOR_DRIVER_METHODS = ("hmc", "nuts", "vi"), (
     "hmc", "vi")
@@ -333,7 +351,7 @@ BRANIN_HASHES = {
     "BRANIN_T32_P32_N1_SCAMLGP":
         "6dd8f805b91f5cac81c9ef895ba173f9f4011fb8bcb90a7c258534258e586d34",
 }
-EXPERIMENT_TABLE_STUDIES, EXPERIMENT_TABLE_EVALS = 8, 3
+EXPERIMENT_TABLE_STUDIES, EXPERIMENT_TABLE_EVALS = 8, 2
 GRID_LEVELS, GRID_TASKS, GRID_POINTS = 32, 28, 64
 NN_TASKS, NN_POINTS, NN_MAX_ROWS = 22, 128, 4096
 #: the synthetic tables are drawn from this seed, the studies' targets and
@@ -365,7 +383,7 @@ CHUNK_TOL = {"noise": 1e-5, "first_x": 5e-3}
 #: gloo ranks (on one card: sharing it), the ranks given SHARD_RANK_TIMEOUT
 #: s together; their files go to SHARD_DIR
 SHARD_A = dict(tasks=128, points=32, sigma=0.05, target_points=8)
-SHARD_B = dict(studies=8, evals=3, tasks=8, points=32, sigma=1.0)
+SHARD_B = dict(studies=8, evals=2, tasks=8, points=32, sigma=1.0)
 SHARD_TASK_SLOTS, SHARD_TARGET_STEPS, SHARD_RANK_TIMEOUT = 4, 100, 300
 SHARD_META_STEPS = 25
 SHARD_DIR = Path(__file__).resolve().parent / "build" / "smoke_sharded"
@@ -656,6 +674,19 @@ def rounding(A, y, n_active, truth, key, schemes):
     return out
 
 
+#: each slice's inputs, configuration and result, for the device_loop phase
+SLICE_RUNS = {}
+#: the device_loop phase runs this slice's cell with loop="device"
+DEVICE_LOOP_SLICE = "branin_t8_p32"
+#: the L-BFGS line search's cap of trips (``models/fit.py``)
+LINESEARCH_TRIPS = 20
+#: a CUDA graph's kernel nodes of ``select`` (``csrc/sweep_inverse.cu``),
+#: and of any hand-written kernel, by (mangled) function name
+SELECT_NODE = re.compile(r"(^|\d)sweep_(warp|cta)_kernel")
+HAND_NODE = re.compile(r"(^|\d)(sweep|blocked_chol|rbf_gram|baseline)\w*"
+                       r"_kernel")
+
+
 def phase_slice(key):
     """One slice's campaign; returns its launches of every kernel."""
     sl = SLICES[key]
@@ -735,6 +766,7 @@ def phase_slice(key):
         extra["chol64"] = chol64_entry(key, scfg, flat_X, flat_y, flat_m,
                                        kern, truth)
 
+    SLICE_RUNS[key] = dict(inputs=(fn, tp, md, optima), cfg=cfg, res=res)
     per_iter = res.iteration_seconds
     emit("slice", time.perf_counter() - t0, slice=key,
          benchmark=sl["benchmark"].__name__, tasks=M, points=N, d=d,
@@ -756,6 +788,85 @@ def phase_slice(key):
          mll_plain_vs_f64_max_rel=rel_to_truth(plain), stages=stages,
          rounding=rounded, **extra)
     return launches
+
+
+def phase_device_loop():
+    """The DEVICE_LOOP_SLICE cell through the device loop, held to the
+    slice's host-loop run bit for bit; returns its launches of every
+    kernel: the counters' (the meta-fit and the warm-up) and, for each
+    replay, the kernel nodes of its graph (``select``'s in SELECT_NODE)."""
+    t0 = time.perf_counter()
+    host = SLICE_RUNS[DEVICE_LOOP_SLICE]
+    fn, tp, md, optima = host["inputs"]
+    cfg = host["cfg"]
+    E = cfg.n_evaluations
+    GLOBAL_TIMER.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = run_campaign(fn, tp, md, seed=0, cfg=cfg,
+                       meta_fit_restarts=META_RESTARTS,
+                       meta_fit_steps=META_STEPS, device="cuda",
+                       loop="device")
+    torch.cuda.synchronize()
+    # the meta-fit, the warm-up and the capture (which launches nothing)
+    counted = launches_now()
+    g = res.graph
+    name = "sweep_inverse"
+    trips = 1 + cfg.fit_steps * LINESEARCH_TRIPS + 1
+    captured = g["launches_per_replay"]
+    check(len(g["capture_seconds"]) == 1 and len(res.iteration_seconds) == E,
+          f"device_loop: {len(g['capture_seconds'])} graphs, "
+          f"{len(res.iteration_seconds)} iterations timed")
+    # what a replay launches, read from the graph's own kernel nodes
+    nodes = g["kernel_nodes"][0]
+    select_nodes = sum(n for k, n in nodes.items() if SELECT_NODE.search(k))
+    hand_nodes = {k: n for k, n in nodes.items() if HAND_NODE.search(k)}
+    check(select_nodes == trips,
+          f"device_loop: the graph holds {select_nodes} {name} kernel "
+          f"nodes, not the fixed {trips} trips")
+    check(sum(hand_nodes.values()) == select_nodes,
+          f"device_loop: the graph holds other hand kernels: {hand_nodes}")
+    check(res.launches[name][1] == trips and captured[name] == trips,
+          f"device_loop: {name} launched {res.launches[name][1]} times in "
+          f"the warm-up and counted {captured[name]} in the capture, not "
+          f"the fixed {trips}")
+    for other, n in captured.items():
+        if other != name:
+            check(n == 0, f"device_loop: the capture counted {other}")
+    check(counted[name] == sum(res.launches[name][:2]) + captured[name],
+          "device_loop: the counters and the result's launches differ")
+    eq = compare_runs(host["res"], res)
+    check(all(eq[f] for f in ("X", "y", "y_clean")),
+          f"device_loop: not the host loop's run bit for bit: {eq}")
+    regret = simple_regret(res.y_clean, optima)
+    check(bool(torch.isfinite(regret).all()),
+          "device_loop: non-finite regret")
+    launched = {k: n - captured.get(k, 0) for k, n in counted.items()}
+    launched[name] += (E - 1) * select_nodes
+    emit("device_loop", time.perf_counter() - t0, slice=DEVICE_LOOP_SLICE,
+         studies=md.X.shape[0], evaluations=E, mll_method=cfg.mll_method,
+         bit_for_bit=True, vs_host=eq,
+         host_iteration_s=host["res"].iteration_seconds,
+         device_iteration_s=res.iteration_seconds,
+         host_meta_fit_s=host["res"].meta_fit_seconds,
+         device_meta_fit_s=res.meta_fit_seconds,
+         capture_s=g["capture_seconds"],
+         instantiate_s=g["instantiate_seconds"],
+         select_nodes_per_replay=select_nodes, replays=E - 1,
+         kernel_nodes_s=g["kernel_nodes_seconds"],
+         kernel_nodes_per_replay=nodes,
+         launches_counted_in_capture=captured, launches=launched,
+         trips_per_target_fit_host=host["res"].launches[name][1:],
+         trips_per_target_fit_warmup=res.launches[name][1],
+         peak_allocated_warmup=g["peak_allocated_warmup"],
+         reserved_before_capture=g["reserved_before_capture"],
+         reserved_after_capture=g["reserved_after_capture"],
+         peak_allocated=g["peak_allocated"], peak_reserved=g["peak_reserved"],
+         sync_debug_mode="error",
+         median_final_regret=float(regret[:, -1].median()),
+         stages=GLOBAL_TIMER.report())
+    return launched
 
 
 def sync(device):
@@ -1884,6 +1995,7 @@ def main():
     head["rbf_gram"], gram_launches = phase_gram()
     max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
     by_slice = {key: phase_slice(key) for key in SLICES}
+    by_slice["device_loop"] = phase_device_loop()
     by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["posterior"] = phase_posterior()
     by_slice["experiment"] = phase_experiment()

@@ -34,12 +34,27 @@ P6 = 1e-4 * np.array([
 ])
 
 
+#: (bytes, shape, dtype, device) -> the constant on the device
+_CONSTANTS: dict = {}
+
+
+def _constant(a, like: torch.Tensor) -> torch.Tensor:
+    """The array ``a`` on ``like``'s dtype and device, copied from the host
+    once: a copy from the host would wait on it inside a CUDA graph's
+    capture (the campaign's device loop)."""
+    a = np.asarray(a)
+    key = (a.tobytes(), a.shape, like.dtype, like.device)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.as_tensor(a, dtype=like.dtype,
+                                          device=like.device)
+    return _CONSTANTS[key]
+
+
 def hartmann_function(x, alpha, A, P):
     """Vectorized Hartmann: x (..., d), alpha (..., 4) -> (...,), for numpy
     arrays or torch tensors (A and P follow x's type, dtype and device)."""
     if isinstance(x, torch.Tensor):
-        A = torch.as_tensor(A, dtype=x.dtype, device=x.device)
-        P = torch.as_tensor(P, dtype=x.dtype, device=x.device)
+        A, P = _constant(A, x), _constant(P, x)
         exp = torch.exp
     else:
         exp = np.exp

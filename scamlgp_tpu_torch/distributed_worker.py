@@ -19,7 +19,9 @@ required: give every launch of one group the same free port.
 cards, distinct cards (``parallel.mesh.local_slots``).  Slots on one device
 run one after another.  ``--device`` defaults to ``cuda``; without a CUDA
 device the worker fails unless ``--device cpu`` is given.  A CPU process
-runs one torch thread.
+runs one torch thread.  ``--loop device`` runs each of the process's rows
+as ``run_campaign(loop="device")`` does (on a card: a CUDA graph a row,
+replayed every iteration after the first); the default is ``host``.
 """
 
 from __future__ import annotations
@@ -99,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="npz of campaign inputs (save_campaign_inputs): "
                          "pins the same unseeded target-task draws across "
                          "separate launches")
+    ap.add_argument("--loop", default="host", choices=["host", "device"],
+                    help="run_campaign's loop: the host's, or one with no "
+                         "host sync (a CUDA graph replayed per iteration)")
     ap.add_argument("--out", required=True)
     return ap
 
@@ -113,7 +118,7 @@ def campaign_kwargs(args) -> dict:
     """``run_campaign``'s arguments besides the inputs and the mesh."""
     return dict(seed=0, cfg=campaign_config(args),
                 meta_fit_restarts=args.meta_fit_restarts,
-                meta_fit_steps=args.meta_fit_steps)
+                meta_fit_steps=args.meta_fit_steps, loop=args.loop)
 
 
 def main(argv=None) -> dict:
@@ -160,6 +165,7 @@ def main(argv=None) -> dict:
                 "local_slots": len(slots),
                 "global_slots": int(mesh.devices.size),
                 "mesh": mesh.shape, "local_studies": int(idx.size),
+                "loop": args.loop, "graph": res.graph,
                 "setup_s": setup_s, "run_s": run_s,
                 "meta_fit_s": res.meta_fit_seconds,
                 "iteration_s": res.iteration_seconds,

@@ -8,8 +8,12 @@ is that algorithm (optax 0.2.6) written out over a batch: every batch
 element (study x task x restart) has its own memory, step size and line
 search, and all advance together.  A line-search trip evaluates the
 objective once for the whole batch and syncs with the host once, to test
-whether every element has finished.  ``torch.optim.LBFGS`` serves one
-problem at a time, so it does not serve here.
+whether every element has finished.  With ``fixed_trips`` every line
+search runs all ``max_linesearch_steps`` trips instead, the finished
+elements frozen by the same mask, and nothing reads a tensor on the host:
+the results are the same bits, and the fit can be captured in a CUDA
+graph.  ``torch.optim.LBFGS`` serves one problem at a time, so it does
+not serve here.
 
 The objective maps a (B, P) tensor of flat raw parameters to (B,) values;
 element b's value must depend on row b only.
@@ -136,15 +140,20 @@ def _where(cond, a, b):
 
 
 def _zoom_linesearch(objective, x, u, value, grad, stepsize_guess,
-                     max_steps: int):
+                     max_steps: int, fixed_trips: bool = False):
     """optax's zoom line search along u from x, per batch element.
-    Returns the accepted (stepsize, value, grad) of each element."""
+    Returns the accepted (stepsize, value, grad) of each element.
+
+    Every element is done or has failed after ``max_steps`` trips.  The
+    loop ends when all are, or, with ``fixed_trips``, after ``max_steps``
+    trips without a host sync; a finished element's state is kept either
+    way, so both give the same bits."""
     B = x.shape[0]
     zeros = torch.zeros(B, dtype=x.dtype, device=x.device)
     false = torch.zeros(B, dtype=torch.bool, device=x.device)
     slope = _vdot(u, grad)
     value_init, slope_init = value, slope
-    st = dict(count=0, stepsize=zeros, value=value, grad=grad, slope=slope,
+    st = dict(stepsize=zeros, value=value, grad=grad, slope=slope,
               decrease_error=zeros + torch.inf, curvature_error=zeros + torch.inf,
               interval_found=false, done=false, failed=false,
               low=zeros, value_low=value, slope_low=slope,
@@ -152,11 +161,10 @@ def _zoom_linesearch(objective, x, u, value, grad, stepsize_guess,
               cubic_ref=zeros, value_cubic_ref=value,
               safe_stepsize=zeros, safe_value=value, safe_grad=grad)
 
-    while True:
+    for count in range(max_steps):
         active = ~(st["done"] | st["failed"])
-        if not bool(active.any()):   # the one host sync of this trip
+        if not fixed_trips and not bool(active.any()):   # the trip's sync
             break
-        count = st["count"]
         low, high = st["low"], st["high"]
         vlow, vhigh = st["value_low"], st["value_high"]
         slow, shigh = st["slope_low"], st["slope_high"]
@@ -258,7 +266,6 @@ def _zoom_linesearch(objective, x, u, value, grad, stepsize_guess,
 
         for k, val in new.items():
             st[k] = _where(active, val, st[k])
-        st["count"] = count + 1
     return st["stepsize"], st["value"], st["grad"]
 
 
@@ -280,9 +287,12 @@ def _lbfgs_direction(grad, dW, dU, rho, identity_scale, memory_idx: int):
 
 
 def lbfgs_minimize(objective: Callable, x0: torch.Tensor, num_steps: int,
-                   memory_size: int = 10, max_linesearch_steps: int = 20):
+                   memory_size: int = 10, max_linesearch_steps: int = 20,
+                   fixed_trips: bool = False):
     """``num_steps`` L-BFGS iterations from x0 (B, P), every row its own
     problem.  Returns (best params (B, P), objective there (B,)).
+    ``fixed_trips``: every line search runs ``max_linesearch_steps`` trips
+    and no step syncs with the host (``_zoom_linesearch``).
 
     As in the reference, the iterate kept is the one produced by the step
     taken from the best finite value seen.
@@ -318,7 +328,8 @@ def lbfgs_minimize(objective: Callable, x0: torch.Tensor, num_steps: int,
         u = -_lbfgs_direction(grad, dW, dU, rho, scale, memory_idx)
         prev_x, prev_g = x, grad
         lr, new_value, new_grad = _zoom_linesearch(
-            objective, x, u, value, grad, lr, max_linesearch_steps)
+            objective, x, u, value, grad, lr, max_linesearch_steps,
+            fixed_trips)
         x_new = x + lr[:, None] * u
         better = torch.isfinite(value) & (value < best_v)
         best_x = _where(better, x_new, best_x)
@@ -330,7 +341,8 @@ def lbfgs_minimize(objective: Callable, x0: torch.Tensor, num_steps: int,
 
 
 def fit_map_restarts(objective: Callable, init_stack, num_steps: int = 60,
-                     memory_size: int = 10, batch_ndim: int = 0) -> FitResult:
+                     memory_size: int = 10, batch_ndim: int = 0,
+                     fixed_trips: bool = False) -> FitResult:
     """Minimize ``objective`` from a stack of initial points and keep, per
     batch element, the restart with the best final objective.
 
@@ -340,6 +352,7 @@ def fit_map_restarts(objective: Callable, init_stack, num_steps: int = 60,
         init_stack: parameters with leading (*batch, R) axes; restart 0 is
             conventionally the warm start.
         batch_ndim: number of batch axes in front of the restart axis.
+        fixed_trips: ``lbfgs_minimize``'s, with no host sync.
     """
     x0 = flatten(init_stack, batch_ndim + 1)
     lead = x0.shape[:-1]
@@ -349,7 +362,8 @@ def fit_map_restarts(objective: Callable, init_stack, num_steps: int = 60,
                                    init_stack, batch_ndim + 1)).reshape(-1)
 
     best, values = lbfgs_minimize(flat_objective, x0.reshape(-1, x0.shape[-1]),
-                                  num_steps, memory_size)
+                                  num_steps, memory_size,
+                                  fixed_trips=fixed_trips)
     values = values.reshape(lead)
     values = torch.where(torch.isfinite(values), values, torch.inf)
     idx = torch.argmin(values, dim=-1, keepdim=True)            # (*batch, 1)

@@ -8,7 +8,10 @@ here chains (and any study axes in front of them) are the leading axes of
 one batch, and every log-density evaluation serves the whole batch at once.
 NUTS runs lock-step: the batch loops while any chain's trajectory is still
 growing, and the updates of a chain that has stopped are masked out, as
-``vmap`` of a ``while_loop`` does.
+``vmap`` of a ``while_loop`` does.  With ``fixed_trips`` a transition
+always runs 2^max_depth - 1 leapfrog steps under the same mask, and no
+step reads a tensor on the host (the same bits, capturable in a CUDA
+graph).
 
 Everything runs in unconstrained (raw) space; ``log_prob_fn`` is the MAP
 objective's negative (MLL + priors on constrained values).
@@ -272,7 +275,7 @@ def _samples(positions, accs, step_size, batch, init_params,
 
 
 def _trajectory(logp_grad, q, lp, grad, eps, momentum, direction0, pick,
-                direction, max_depth: int):
+                direction, max_depth: int, fixed_trips: bool = False):
     """One adaptive-trajectory transition of every chain from (q, lp, grad)
     (B, D), (B,), (B, D) with step sizes ``eps`` (B,): the trajectory
     doubles (1, 2, 4, ... leapfrog steps a subtree, a drawn direction a
@@ -280,8 +283,10 @@ def _trajectory(logp_grad, q, lp, grad, eps, momentum, direction0, pick,
     divergence, or ``max_depth`` doublings.  The chosen state is a
     progressive multinomial draw proportional to exp(H - H0) over every
     visited state.  Chains step together while any still runs; a stopped
-    chain's state no longer changes.  Returns (q, log-density, gradient,
-    mean acceptance statistic) at the chosen states."""
+    chain's state no longer changes.  The loop ends when no chain runs,
+    or, with ``fixed_trips``, after 2^max_depth - 1 steps, the most a
+    trajectory takes, without a host sync.  Returns (q, log-density,
+    gradient, mean acceptance statistic) at the chosen states."""
     B = q.shape[0]
     dtype, dev = q.dtype, q.device
     p0 = momentum
@@ -294,10 +299,9 @@ def _trajectory(logp_grad, q, lp, grad, eps, momentum, direction0, pick,
              subtree=ones_i, depth=torch.zeros_like(ones_i),
              stop=torch.zeros(B, dtype=torch.bool, device=dev),
              acc_sum=zeros, acc_cnt=zeros)
-    j = 0
-    while True:
+    for j in range(2 ** max_depth - 1):
         active = ~s["stop"] & (s["depth"] < max_depth)
-        if not bool(active.any()):   # the loop's one host sync a step
+        if not fixed_trips and not bool(active.any()):   # the step's sync
             break
         sign = s["direction"][..., None]
         right = sign > 0
@@ -345,7 +349,6 @@ def _trajectory(logp_grad, q, lp, grad, eps, momentum, direction0, pick,
         for k, v in new.items():
             mask = active[..., None] if v.ndim == 2 else active
             s[k] = torch.where(mask, v, s[k])
-        j += 1
     qp, lpp = s["qp"], s["lpp"]
     _, gp_ = logp_grad(qp)
     accept_stat = s["acc_sum"] / torch.clamp_min(s["acc_cnt"], 1.0)
@@ -355,7 +358,7 @@ def _trajectory(logp_grad, q, lp, grad, eps, momentum, direction0, pick,
 def nuts(log_prob_fn: Callable, init_params, draws: NUTSDraws,
          num_warmup: int = 200, num_samples: int = 200, max_depth: int = 8,
          target_accept: float = 0.8, init_step_size: float = 0.1,
-         batch_ndim: int = 0):
+         batch_ndim: int = 0, fixed_trips: bool = False):
     """NUTS-style adaptive-trajectory sampler of every chain of a batch.
 
     The trajectory doubles with multinomial state selection until a
@@ -364,6 +367,8 @@ def nuts(log_prob_fn: Callable, init_params, draws: NUTSDraws,
     by dual averaging with mu fixed at log(10 * init_step_size), and the
     mass is the identity.  Arguments and returns as ``hmc``'s, with
     ``NUTSDraws`` of ``num_warmup + num_samples`` transitions.
+    ``fixed_trips``: every transition runs 2^max_depth - 1 leapfrog steps,
+    with no host sync (``_trajectory``).
     """
     q, batch, log_prob_flat = _flat_log_prob(log_prob_fn, init_params,
                                              batch_ndim)
@@ -381,7 +386,7 @@ def nuts(log_prob_fn: Callable, init_params, draws: NUTSDraws,
 
     def transition(q, lp, g, eps, i):
         return _trajectory(logp_grad, q, lp, g, eps, mom[:, i], dir0[:, i],
-                           pick[:, i], dirs[:, i], max_depth)
+                           pick[:, i], dirs[:, i], max_depth, fixed_trips)
 
     lp, g = logp_grad(q)
     log_eps = torch.full((B,), math.log(init_step_size), dtype=dtype,
@@ -425,8 +430,9 @@ def interleave_and_thin(samples, take: int, batch_ndim: int = 0):
         C, T = leaf.shape[batch_ndim:batch_ndim + 2]
         flat = leaf.transpose(batch_ndim, batch_ndim + 1).reshape(
             lead + (C * T,) + leaf.shape[batch_ndim + 2:])
-        idx = torch.as_tensor(thin_indices(C * T, take), device=leaf.device)
-        return flat.index_select(batch_ndim, idx)
+        # picked one by one: an index tensor would be copied from the host
+        return torch.stack([flat.select(batch_ndim, k)
+                            for k in thin_indices(C * T, take)], batch_ndim)
 
     return fit_lib.tree_map(one, samples)
 

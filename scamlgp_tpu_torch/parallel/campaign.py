@@ -8,6 +8,16 @@ batched Adam, and the benchmark evaluation.  The host loops over iterations
 only; with ``study_chunk`` it runs the iterations of one chunk of studies
 after another.
 
+With ``loop="device"`` (the JAX package's ``fori_loop`` campaign) no
+iteration syncs with the host: every iteration's draws are made first and
+put on the device along an iteration axis, and one body
+(``device_iteration``) reads its draws and writes its buffers at an
+iteration index held in a device tensor.  Its target fit takes the
+fixed-trip L-BFGS and NUTS (``fixed_trips``), which give the host loop's
+bits.  On a CUDA device iteration 0 runs eagerly, as the warm-up, and the
+body is then captured once as a CUDA graph and replayed for every later
+iteration; on the CPU the body runs eagerly for every iteration.
+
 With a ``mesh`` (``parallel/mesh.py``) the studies are split over its
 study rows, padded to a multiple of them with copies of study 0: each row
 of this process runs its studies' meta-fit and iterations on the row's
@@ -39,7 +49,7 @@ reference's names (``campaign_stage_inputs``, ``campaign_meta_fit``,
 ``iteration_sample_target`` (a posterior fit), ``iteration_acq_state``,
 ``iteration_propose`` and ``iteration_benchmark``; checkpoint writes are
 ``campaign_checkpoint``.  Each stage synchronizes the card before its
-clock is read.
+clock is read.  The device loop times no stage within an iteration.
 
 Randomness comes from host ``torch.Generator`` s; their draws move to the
 device.  The meta-fit's restarts come from one generator seeded with
@@ -54,6 +64,7 @@ arguments, so tests can hand the JAX package and the port the same draws.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, NamedTuple, Optional
@@ -72,6 +83,7 @@ from scamlgp_tpu_torch.models import vi as vi_lib
 from scamlgp_tpu_torch.ops import inverse_mll
 from scamlgp_tpu_torch.parallel.mesh import Mesh, cat_rows, pad_to_multiple
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
+from scamlgp_tpu_torch.utils import cuda_graph
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
 
 
@@ -119,10 +131,13 @@ class CampaignResult(NamedTuple):
     y_clean: torch.Tensor  # (S, E) noise-free losses
     meta_fit_seconds: float
     iteration_seconds: list  # host clock per BO iteration run, device
-    #                          synced (chunk after chunk in a chunked run)
+    #                          synced (chunk after chunk in a chunked run);
+    #                          the device loop on a card: CUDA event time of
+    #                          the warm-up, then of each replay
     launches: dict           # kernel name -> launches in the meta-fit, then
     #                          in each iteration run (all 0 where no CUDA
-    #                          tensor ran)
+    #                          tensor ran); a replay's are those counted
+    #                          while its graph was captured
     nonfinite_source_tasks: int  # fitted source GPs whose cached factor
     #                              or alpha is not finite after the
     #                              meta-fit's Cholesky-route refit (their
@@ -140,6 +155,10 @@ class CampaignResult(NamedTuple):
     studies: Optional[torch.Tensor] = None    # the studies whose rows this
     #                        call ran (all S but on a mesh over several
     #                        processes)
+    graph: Optional[dict] = None  # the device loop on a card: each row's
+    #                        capture and instantiate seconds, its graph's
+    #                        kernel nodes, and the device memory around
+    #                        them (``_device_loop``)
 
 
 class CampaignState(NamedTuple):
@@ -285,30 +304,37 @@ def target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf, mask,
 
 def _fit_target(stack, source_cfg, target_cfg, params_warm, Xbuf, ybuf, mask,
                 out_mean, out_std, restarts: m.TargetParams,
-                cfg: CampaignConfig) -> m.TargetParams:
+                cfg: CampaignConfig,
+                fixed_trips: bool = False) -> m.TargetParams:
     """Warm + prior-restart L-BFGS MAP fit of the target parameters of every
     study (training-mode cached source moments).  ``restarts`` carries the
-    prior draws with leading (..., fit_restarts) axes."""
+    prior draws with leading (..., fit_restarts) axes; ``fixed_trips``
+    runs every line search to its cap with no host sync."""
     objective = target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf,
                                  mask, out_mean, out_std, cfg)
     batch_ndim = out_mean.ndim
     stack0 = fit_lib.stack_restarts(params_warm, restarts, batch_ndim)
     return fit_lib.fit_map_restarts(objective, stack0, num_steps=cfg.fit_steps,
-                                    batch_ndim=batch_ndim).params
+                                    batch_ndim=batch_ndim,
+                                    fixed_trips=fixed_trips).params
 
 
 def _sample_target_hmc(stack, source_cfg, target_cfg, Xbuf, ybuf, mask,
                        out_mean, out_std, draws: IterationDraws,
-                       cfg: CampaignConfig) -> m.TargetParams:
+                       cfg: CampaignConfig,
+                       fixed_trips: bool = False) -> m.TargetParams:
     """Posterior draws of the target parameters of every study by HMC or
     NUTS chains (``cfg.fit_method``), all S x ``hmc_chains`` chains one
     batch, from ``draws.chains``' prior-drawn starts, over the objective of
     ``_fit_target``.  Returns draws (S, mixture_samples, ...): the chains
-    interleaved sample-major and thinned from the tail."""
+    interleaved sample-major and thinned from the tail.  ``fixed_trips``
+    runs every NUTS transition to its cap with no host sync (HMC's
+    trajectories are fixed already)."""
     objective = target_objective(stack, source_cfg, target_cfg, Xbuf, ybuf,
                                  mask, out_mean, out_std, cfg)
     sampler = hmc_lib.nuts if cfg.fit_method == "nuts" else hmc_lib.hmc
-    extra = ({"max_depth": cfg.hmc_max_depth} if cfg.fit_method == "nuts"
+    extra = ({"max_depth": cfg.hmc_max_depth, "fixed_trips": fixed_trips}
+             if cfg.fit_method == "nuts"
              else {"num_leapfrog": cfg.hmc_leapfrog})
     samples, _ = sampler(lambda p: -objective(p), draws.chains,
                          draws.sampler, num_warmup=cfg.hmc_warmup,
@@ -379,21 +405,23 @@ def _propose(stack, source_cfg, target_cfg, state, Xbuf, raw,
     return torch.sigmoid(z)
 
 
-def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
-                  Xbuf, ybuf, yclean, mask, params: m.TargetParams,
-                  draws: IterationDraws, i: int, source_cfg: gp.GPConfig,
-                  target_cfg: gp.GPConfig, cfg: CampaignConfig):
-    """One lock-step BO iteration of every study: refit, propose, evaluate.
-    Returns the updated (Xbuf, ybuf, yclean, mask, params) and, after a
-    posterior fit, its mixture draws (S, mixture_samples, ...) (else None);
-    ``params`` is then the last draw of each study."""
+def _refit_and_propose(benchmark_fn: Callable, stack: m.SourceStack,
+                       task_params, Xbuf, ybuf, mask, params: m.TargetParams,
+                       draws: IterationDraws, source_cfg: gp.GPConfig,
+                       target_cfg: gp.GPConfig, cfg: CampaignConfig,
+                       fixed_trips: bool):
+    """One lock-step iteration of every study up to the evaluation, its
+    stages timed by ``GLOBAL_TIMER`` (which neither syncs nor records
+    under a CUDA graph capture).  Returns (proposals (S, d), noise-free and
+    noisy losses (S,), the parameters carried into the next iteration,
+    a posterior fit's mixture draws or None)."""
     S, M = stack.data.X.shape[:2]
     dtype, dev = Xbuf.dtype, Xbuf.device
     args = (stack, source_cfg, target_cfg)
     samples = None
     mixture = cfg.fit_method != "map"
     with GLOBAL_TIMER("iteration_sample_target" if mixture
-                      else "iteration_fit_target", dev):
+               else "iteration_fit_target", dev):
         out_mean, out_std = m.output_normalizer(stack, ybuf, mask)
         warm = m.TargetParams(
             raw_weights=m.weights_inverse(torch.full(
@@ -401,14 +429,15 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
             gp=params.gp)
         if cfg.fit_method == "map":
             params = _fit_target(*args, warm, Xbuf, ybuf, mask, out_mean,
-                                 out_std, draws.restarts, cfg)
+                                 out_std, draws.restarts, cfg, fixed_trips)
         else:
             if cfg.fit_method == "vi":
                 samples = _sample_target_vi(*args, warm, Xbuf, ybuf, mask,
                                             out_mean, out_std, draws, cfg)
             else:
                 samples = _sample_target_hmc(*args, Xbuf, ybuf, mask,
-                                             out_mean, out_std, draws, cfg)
+                                             out_mean, out_std, draws, cfg,
+                                             fixed_trips)
             # the last draw is carried into the next iteration's warm start
             params = fit_lib.tree_map(lambda leaf: leaf[:, -1], samples)
     # a posterior fit's draws (S, K) broadcast against a unit axis of the
@@ -425,12 +454,196 @@ def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
     with GLOBAL_TIMER("iteration_benchmark", dev):
         y_clean = benchmark_fn(x_star, task_params).to(dtype)
     y_noisy = y_clean + cfg.noise_std * draws.noise
+    return x_star, y_clean, y_noisy, params, samples
+
+
+def run_iteration(benchmark_fn: Callable, stack: m.SourceStack, task_params,
+                  Xbuf, ybuf, yclean, mask, params: m.TargetParams,
+                  draws: IterationDraws, i: int, source_cfg: gp.GPConfig,
+                  target_cfg: gp.GPConfig, cfg: CampaignConfig):
+    """One lock-step BO iteration of every study: refit, propose, evaluate.
+    Returns the updated (Xbuf, ybuf, yclean, mask, params) and, after a
+    posterior fit, its mixture draws (S, mixture_samples, ...) (else None);
+    ``params`` is then the last draw of each study."""
+    x_star, y_clean, y_noisy, params, samples = _refit_and_propose(
+        benchmark_fn, stack, task_params, Xbuf, ybuf, mask, params, draws,
+        source_cfg, target_cfg, cfg, False)
     Xbuf, ybuf, yclean, mask = (t.clone() for t in (Xbuf, ybuf, yclean, mask))
     Xbuf[:, i] = x_star
     ybuf[:, i] = y_noisy
     yclean[:, i] = y_clean
     mask[:, i] = 1.0
     return Xbuf, ybuf, yclean, mask, params, samples
+
+
+def _at(stacked, index: torch.Tensor):
+    """Entry ``index`` (a (1,) device tensor) of every leaf's leading
+    iteration axis; absent (None) members stay absent."""
+    return fit_lib.tree_map(
+        lambda leaf: None if leaf is None else leaf.index_select(0, index)[0],
+        stacked)
+
+
+def device_iteration(benchmark_fn: Callable, stack: m.SourceStack,
+                     task_params, bufs, params: m.TargetParams, stacked,
+                     index: torch.Tensor, source_cfg: gp.GPConfig,
+                     target_cfg: gp.GPConfig, cfg: CampaignConfig):
+    """The device loop's body: ``run_iteration`` at the iteration held in
+    ``index`` (a (1,) int64 tensor on the device), with the fixed-trip fit,
+    so that under a capture nothing in it waits on the host (its stage
+    timers then neither sync nor record).  It reads
+    its draws at ``index`` from ``stacked`` (``IterationDraws`` with a
+    leading iteration axis), writes the evaluation into ``bufs``
+    ((Xbuf, ybuf, yclean, mask)) at ``index`` and the carried parameters
+    into ``params``, both in place, and returns a posterior fit's mixture
+    draws (else None)."""
+    Xbuf, ybuf, yclean, mask = bufs
+    x_star, y_clean, y_noisy, new, samples = _refit_and_propose(
+        benchmark_fn, stack, task_params, Xbuf, ybuf, mask, params,
+        _at(stacked, index), source_cfg, target_cfg, cfg, True)
+    for buf, value in ((Xbuf, x_star), (ybuf, y_noisy), (yclean, y_clean),
+                       (mask, torch.ones_like(y_noisy))):
+        buf.index_copy_(1, index, value.unsqueeze(1))
+    for dst, src in zip(fit_lib.tree_leaves(params),
+                        fit_lib.tree_leaves(new)):
+        dst.copy_(src)
+    return samples
+
+
+def _stack_draws(draws: list) -> IterationDraws:
+    """Iterations' ``IterationDraws`` stacked on a leading iteration axis;
+    absent (None) members stay absent."""
+    return fit_lib.tree_map(
+        lambda *leaves: None if leaves[0] is None else torch.stack(leaves),
+        *draws)
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Any operation that synchronizes the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def _device_loop(step: Callable, runs: list, E: int, counts: list):
+    """Run ``step(run)`` (one iteration of a run's rows, then its index
+    advanced) for iterations 0 .. E-1 of every run, each iteration's runs
+    one after another.  Appends each iteration's cumulative launch counts
+    to ``counts``; returns (iteration seconds, graph statistics or None).
+
+    On the CPU every iteration runs eagerly.  On a card iteration 0 runs
+    eagerly on a side stream (the warm-up: the kernels are built, loaded
+    and configured there); then each run's ``step`` is captured once as a
+    ``torch.cuda.CUDAGraph`` and replayed for iterations 1 .. E-1, with no
+    host synchronization between replays.  Capture and replays run under
+    ``set_sync_debug_mode("error")``; a failure to capture or replay
+    raises.  Seconds are CUDA event times (the warm-up's, then each
+    replay's).  A replay does not tick the kernels' launch counters: its
+    launches in ``counts`` are those counted while its graph was
+    captured.  The graph statistics hold, besides, each graph's kernel
+    nodes by function name (``utils.cuda_graph.kernel_nodes``: what a
+    replay launches, read from the graph itself; the seconds the walk
+    took apart) and the device memory
+    around the capture; the peaks count from the caller's last
+    ``torch.cuda.reset_peak_memory_stats``, which this never calls."""
+    devices = list(dict.fromkeys(torch.device(r["device"]) for r in runs))
+    if all(dev.type != "cuda" for dev in devices):
+        seconds = []
+        for _ in range(E):
+            t0 = time.perf_counter()
+            for run in runs:
+                step(run)
+            seconds.append(time.perf_counter() - t0)
+            counts.append(inverse_mll.kernel_launches())
+        return seconds, None
+    if any(dev.type != "cuda" for dev in devices):
+        raise ValueError("the device loop runs all rows on the CPU or all "
+                         "on CUDA devices")
+
+    def timed(body):
+        """body() between CUDA events on every device's current stream;
+        returns the events."""
+        start, end = ({dev: torch.cuda.Event(enable_timing=True)
+                       for dev in devices} for _ in range(2))
+        for dev in devices:
+            start[dev].record(torch.cuda.current_stream(dev))
+        body()
+        for dev in devices:
+            end[dev].record(torch.cuda.current_stream(dev))
+        return start, end
+
+    def per_run(fn):
+        def body():
+            for run in runs:
+                with torch.cuda.device(run["device"]):
+                    fn(run)
+        return body
+
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    # iteration 0, eagerly on a side stream of each device
+    side = {dev: torch.cuda.Stream(dev) for dev in devices}
+    for dev in devices:
+        side[dev].wait_stream(torch.cuda.current_stream(dev))
+    with contextlib.ExitStack() as streams:
+        for dev in devices:
+            streams.enter_context(torch.cuda.stream(side[dev]))
+        events = [timed(per_run(step))]
+    for dev in devices:
+        torch.cuda.current_stream(dev).wait_stream(side[dev])
+        torch.cuda.synchronize(dev)
+    counts.append(inverse_mll.kernel_launches())
+    stats = {"devices": [str(dev) for dev in devices],
+             "peak_allocated_warmup": [torch.cuda.max_memory_allocated(dev)
+                                       for dev in devices],
+             "reserved_before_capture": [torch.cuda.memory_reserved(dev)
+                                         for dev in devices],
+             "capture_seconds": [], "instantiate_seconds": [],
+             "kernel_nodes": [], "kernel_nodes_seconds": []}
+    if E > 1:
+        before = inverse_mll.kernel_launches()
+        for run in runs:
+            with torch.cuda.device(run["device"]):
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph):
+                    with _sync_errors():
+                        step(run)
+                stats["capture_seconds"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                graph.instantiate()
+                torch.cuda.synchronize()
+                stats["instantiate_seconds"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                stats["kernel_nodes"].append(cuda_graph.kernel_nodes(graph))
+                stats["kernel_nodes_seconds"].append(
+                    time.perf_counter() - t0)
+                run["graph"] = graph
+        after = inverse_mll.kernel_launches()
+        per_replay = {k: after[k] - before[k] for k in after}
+        stats["launches_per_replay"] = per_replay
+        stats["reserved_after_capture"] = [torch.cuda.memory_reserved(dev)
+                                           for dev in devices]
+        with _sync_errors():
+            for _ in range(1, E):
+                events.append(timed(per_run(lambda run: run["graph"].replay())))
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        for _ in range(1, E):
+            counts.append({k: counts[-1][k] + per_replay.get(k, 0)
+                           for k in counts[-1]})
+    stats["peak_allocated"] = [torch.cuda.max_memory_allocated(dev)
+                               for dev in devices]
+    stats["peak_reserved"] = [torch.cuda.max_memory_reserved(dev)
+                              for dev in devices]
+    seconds = [max(start[dev].elapsed_time(end[dev]) for dev in devices)
+               / 1e3 for start, end in events]
+    return seconds, stats
 
 
 def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
@@ -454,6 +667,15 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             observations, already noisy if desired.
         seed: seeds the meta-fit's generator and, with the iteration,
             each iteration's (``iteration_generator``).
+        loop: ``"host"``, the host loops over iterations; or ``"device"``,
+            no iteration syncs with the host (``device_iteration``): all
+            E iterations' draws are made first, and on a CUDA device
+            iteration 0 runs eagerly and every later one is a replay of a
+            CUDA graph captured once (``_device_loop``; its seconds and
+            memory in ``CampaignResult.graph``).  The device loop equals
+            the host loop bit for bit where the library takes the same
+            algorithms under capture.  Not with ``checkpoint_path``,
+            ``stop_after`` or ``study_chunk``.
         meta_fit_chunks: split the (S*M)-task meta-fit into this many equal
             sequential batches (must divide S).  The draws are made for all
             tasks first, so the result does not depend on the split.  Not
@@ -486,8 +708,15 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
         device: where the inputs and results live; ``cuda`` when left out,
             or, with a mesh, the first slot of this process.
     """
-    if loop != "host":
-        raise NotImplementedError(f"loop={loop!r}: only 'host' is ported")
+    if loop not in ("host", "device"):
+        raise ValueError(f"loop={loop!r}: 'host' or 'device'")
+    if loop == "device":
+        for name, value in (("checkpoint_path", checkpoint_path),
+                            ("stop_after", stop_after),
+                            ("study_chunk", study_chunk or None)):
+            if value is not None:
+                raise ValueError(f"{name} is for the host loop only, not "
+                                 "with loop='device'")
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every={checkpoint_every} < 1")
     if mesh is not None:
@@ -628,7 +857,73 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
     iteration_seconds = []
     stopped = False
     samples = None
+    graph = None
+
+    def lane_runs(group):
+        """Each lane's rows on its device."""
+        return [{"rows": (a, b), "device": dev, "stack": st,
+                 "task_params": {k: v[a:b].to(dev)
+                                 for k, v in task_params.items()},
+                 "bufs": [t[a:b].to(dev) for t in (Xbuf, ybuf, yclean, mask)],
+                 "params": _to(_rows(params, a, b), dev), "samples": None}
+                for (a, b, dev), st in group]
+
+    def merge(runs):
+        """The runs' buffers and parameters into the full ones."""
+        for run in runs:
+            a, b = run["rows"]
+            for full, part in zip((Xbuf, ybuf, yclean, mask,
+                                   *fit_lib.tree_leaves(params)),
+                                  (*run["bufs"],
+                                   *fit_lib.tree_leaves(run["params"]))):
+                full[a:b] = part.to(full.device)
+
+    def merge_samples(runs):
+        """The runs' last mixture draws into the full ones, NaN for the
+        studies not run here."""
+        nonlocal samples
+        for run in runs:
+            smp = run["samples"]
+            if smp is None:
+                continue
+            if samples is None:
+                samples = fit_lib.tree_map(
+                    lambda leaf: leaf.new_full(
+                        (S + pad,) + leaf.shape[1:], torch.nan,
+                        device=device), smp)
+            a, b = run["rows"]
+            for full, part in zip(fit_lib.tree_leaves(samples),
+                                  fit_lib.tree_leaves(smp)):
+                full[a:b] = part.to(device)
+
     with GLOBAL_TIMER("campaign_bo_loop", device):
+        if loop == "device":
+            # every iteration's draws, made as the host loop makes them
+            all_draws = [_pad_rows(iteration_draws(
+                iteration_generator(seed, i), cfg, target_cfg, S, M, d,
+                dtype, device), pad) for i in range(E)]
+            runs = lane_runs(pairs)
+            for run in runs:   # static buffers of the run's own
+                a, b = run["rows"]
+                dev = run["device"]
+                run["bufs"] = [t.clone() for t in run["bufs"]]
+                run["params"] = fit_lib.tree_map(torch.clone, run["params"])
+                run["draws"] = _stack_draws(
+                    [_to(_rows(dr, a, b), dev) for dr in all_draws])
+                run["index"] = torch.zeros(1, dtype=torch.long, device=dev)
+            del all_draws
+
+            def step(run):
+                run["samples"] = device_iteration(
+                    benchmark_fn, run["stack"], run["task_params"],
+                    run["bufs"], run["params"], run["draws"], run["index"],
+                    source_cfg, target_cfg, cfg)
+                run["index"].add_(1)
+
+            iteration_seconds, graph = _device_loop(step, runs, E, counts)
+            merge(runs)
+            merge_samples(runs)
+            groups = []
         for group in groups:
             (c0, c1, _), _ = group[0]
             d_c = torch.cat([done[a:b] for (a, b, _), _ in group])
@@ -642,16 +937,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             i0 = int(d_c.min())
             if i0 >= E:
                 continue
-            # each lane's rows on its device
-            runs = []
-            for (a, b, dev), st in group:
-                runs.append({"rows": (a, b), "device": dev, "stack": st,
-                             "task_params": {k: v[a:b].to(dev) for k, v in
-                                             task_params.items()},
-                             "bufs": [t[a:b].to(dev) for t in
-                                      (Xbuf, ybuf, yclean, mask)],
-                             "params": _to(_rows(params, a, b), dev),
-                             "samples": None})
+            runs = lane_runs(group)
             for i in range(i0, E):
                 t0 = time.perf_counter()
                 with GLOBAL_TIMER("campaign_iteration", device):
@@ -674,29 +960,11 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                 last = i + 1 == E or stopped
                 if last or (checkpoint_path is not None
                             and (i + 1) % checkpoint_every == 0):
-                    for run in runs:
-                        a, b = run["rows"]
-                        for full, part in zip(
-                                (Xbuf, ybuf, yclean, mask,
-                                 *fit_lib.tree_leaves(params)),
-                                (*run["bufs"],
-                                 *fit_lib.tree_leaves(run["params"]))):
-                            full[a:b] = part.to(full.device)
+                    merge(runs)
                     if checkpoint_path is not None:
                         save()
-                for run in runs:
-                    smp = run["samples"]
-                    if not last or smp is None:
-                        continue
-                    if samples is None:   # NaN for studies not run here
-                        samples = fit_lib.tree_map(
-                            lambda leaf: leaf.new_full(
-                                (S + pad,) + leaf.shape[1:], torch.nan,
-                                device=device), smp)
-                    a, b = run["rows"]
-                    for full, part in zip(fit_lib.tree_leaves(samples),
-                                          fit_lib.tree_leaves(smp)):
-                        full[a:b] = part.to(device)
+                if last:
+                    merge_samples(runs)
                 if stopped:
                     break
             if stopped:
@@ -711,7 +979,8 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                           mask=mask[:S],
                           samples=(None if samples is None
                                    else _rows(samples, 0, S)),
-                          stack=stack, studies=torch.tensor(held))
+                          stack=stack, studies=torch.tensor(held),
+                          graph=graph)
 
 
 def simple_regret(y_clean: torch.Tensor, optimum) -> torch.Tensor:

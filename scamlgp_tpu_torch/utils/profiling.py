@@ -37,10 +37,23 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def _is_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
 def synchronize(device) -> None:
     """Wait for the work queued on ``device`` where it is a CUDA device."""
-    if device is not None and torch.device(device).type == "cuda":
+    if _is_cuda(device):
         torch.cuda.synchronize(device)
+
+
+def capturing(device) -> bool:
+    """Whether ``device`` is a CUDA device whose current stream is being
+    captured into a CUDA graph."""
+    if not _is_cuda(device):
+        return False
+    with torch.cuda.device(device):
+        return torch.cuda.is_current_stream_capturing()
 
 
 class Timer:
@@ -53,7 +66,12 @@ class Timer:
     @contextlib.contextmanager
     def __call__(self, name: str, device=None):
         """Time the block as phase ``name``; with a CUDA ``device``, the
-        device is synchronized before the clock is read at the end."""
+        device is synchronized before the clock is read at the end.  Under
+        a CUDA graph capture on ``device`` nothing is synchronized or
+        recorded."""
+        if capturing(device):
+            yield
+            return
         t0 = time.perf_counter()
         try:
             yield

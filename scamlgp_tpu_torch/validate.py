@@ -7,7 +7,7 @@ with the JAX package's committed regret rows.
         [--route-blocked]
         [--sweep-variant select] [--optimum-method shgo] [--seed 0]
         [--study-chunk K] [--shard-studies N] [--checkpoint PATH]
-        [--stop-after N]
+        [--stop-after N] [--loop host|device]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
         [--driver campaign|sequential]
 
@@ -48,6 +48,15 @@ iterations; the JSON line then summarizes the iterations completed.
 ``--device cuda`` finds that many (``mesh.local_slots``), each slot its
 rows' meta-fit and iterations, one after another on one card.  Not with
 ``--study-chunk``.
+
+``--loop device`` runs the campaign's iterations with no host sync
+(``run_campaign(loop="device")``): on a card, iteration 0 eagerly and
+every later one as a replay of one captured CUDA graph; the JSON line then
+holds the graph's capture and instantiate seconds, its kernel nodes and
+the device memory around them (``graph``).  Not with ``--study-chunk``,
+``--checkpoint`` or ``--stop-after``.  The default is ``host``.  On a
+card, ``peak_memory_bytes`` is the campaign's peak allocated memory
+(meta-fit included) under either loop.
 
 ``--driver sequential`` runs the same experiment study by study through
 the sequential driver instead, as the reference runs it: for each study
@@ -234,6 +243,9 @@ def main(argv=None) -> dict:
                          "from it when it exists")
     ap.add_argument("--stop-after", type=int, default=None,
                     help="checkpoint and stop after this many iterations")
+    ap.add_argument("--loop", default="host", choices=["host", "device"],
+                    help="the campaign's loop: the host's, or one with no "
+                         "host sync (a CUDA graph replayed per iteration)")
     ap.add_argument("--out", default=None, help="save the (S, E) regrets")
     ap.add_argument("--compare", default=None,
                     help="a committed (S_ref, E) regret curve (.npy) to "
@@ -267,12 +279,15 @@ def main(argv=None) -> dict:
     mesh = (make_mesh(study=args.shard_studies, task=1,
                       devices=local_slots(device, args.shard_studies))
             if args.shard_studies else None)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
     GLOBAL_TIMER.reset()
     t0 = time.perf_counter()
     res = run_campaign(fn, tp, md, seed=args.seed, cfg=cfg, device=device,
                        mesh=mesh, checkpoint_path=args.checkpoint,
                        stop_after=args.stop_after,
-                       study_chunk=args.study_chunk)
+                       study_chunk=args.study_chunk, loop=args.loop)
     run_s = time.perf_counter() - t0
     reg = simple_regret(res.y_clean, optima).cpu().numpy()
     completed = int(res.mask.sum(-1).min())
@@ -290,7 +305,7 @@ def main(argv=None) -> dict:
         "route_blocked": args.route_blocked,
         "sweep_variant": args.sweep_variant,
         "optimum_method": args.optimum_method,
-        "study_chunk": args.study_chunk,
+        "study_chunk": args.study_chunk, "loop": args.loop,
         "shard_studies": args.shard_studies,
         "mesh_slots": (None if mesh is None
                        else [str(dv) for dv in mesh.devices[:, 0]]),
@@ -302,7 +317,9 @@ def main(argv=None) -> dict:
         "iterations_run": len(res.iteration_seconds),
         "mean_iteration_s": (float(np.mean(res.iteration_seconds))
                              if res.iteration_seconds else None),
-        "iteration_s": res.iteration_seconds,
+        "iteration_s": res.iteration_seconds, "graph": res.graph,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if on_card else None),
         "stages": GLOBAL_TIMER.report(),
         "launches": {k: sum(v) for k, v in res.launches.items()},
         "launches_meta_fit": {k: v[0] for k, v in res.launches.items()},

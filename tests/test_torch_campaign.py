@@ -191,11 +191,15 @@ def _jax_ascent(acq, raw, cfg):
     return raw_vals, jax.nn.sigmoid(zs[best])
 
 
-@pytest.mark.parametrize("i", [0, 2])
+@pytest.mark.parametrize("i,fixed_trips", [(0, False), (2, False),
+                                           (0, True), (2, True)],
+                         ids=["0", "2", "0-fixed", "2-fixed"])
 @pytest.mark.parametrize("method", ["chol", "sweep"])
-def test_one_lock_step_iteration_matches(iteration, method, i):
+def test_one_lock_step_iteration_matches(iteration, method, i, fixed_trips):
     """At i = 0 the MAP fit has only priors (the weights fall to their lower
-    bound) and the buffers are all padding; at i = 2 two points are seen."""
+    bound) and the buffers are all padding; at i = 2 two points are seen.
+    With ``fixed_trips`` the fit is the device loop's (every line search
+    to its cap of trips, no host sync)."""
     it, ref = iteration, iteration["ref"][i]
     scfg_t, tcfg_t = tgp.source_gp_config(), tgp.target_gp_config()
     cfg_t = tc.CampaignConfig(mll_method=method, **CFG)
@@ -210,7 +214,7 @@ def test_one_lock_step_iteration_matches(iteration, method, i):
     warm = convert.target_params(convert.to_numpy_dict(it["warm"]),
                                  device="cpu")
     tparams = tc._fit_target(tstack, scfg_t, tcfg_t, warm, tX, ty, tmk, om_t,
-                             os_t, restarts, cfg_t)
+                             os_t, restarts, cfg_t, fixed_trips)
     jparams = convert.target_params(convert.to_numpy_dict(ref["params"]),
                                     device="cpu")
     close(tfit.flatten(tparams, 1), tfit.flatten(jparams, 1))
@@ -264,14 +268,11 @@ def test_simple_regret_matches():
           rtol=1e-12)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()),
-                                    dict(loop="device")])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unported_options_raise(inputs, kwargs):
-    """``loop="device"`` is not ported; a mesh that is not a
-    ``parallel.mesh.Mesh`` is refused."""
+    """A mesh that is not a ``parallel.mesh.Mesh`` is refused."""
     _, (fn, tp, md, _) = inputs
-    with pytest.raises(TypeError if "mesh" in kwargs
-                       else NotImplementedError):
+    with pytest.raises(TypeError):
         tc.run_campaign(fn, tp, md, device="cpu", **kwargs)
 
 
@@ -433,7 +434,7 @@ def _replayed_draws(keys, raw, fit_method, d: int) -> tc.IterationDraws:
                              sampler=sampler)
 
 
-@pytest.mark.parametrize("method", ["chol", "sweep"])
+@pytest.mark.parametrize("method", ["chol", "sweep", "sweep-fixed"])
 @pytest.mark.parametrize("fit_method", ["hmc", "nuts", "vi"])
 def test_one_posterior_iteration_matches(inputs, iteration, fit_method,
                                          method):
@@ -442,7 +443,11 @@ def test_one_posterior_iteration_matches(inputs, iteration, fit_method,
     chains interleaved sample-major and thinned from the tail, or ADVI's
     q draws), the carried last draw, the mixture UCB at the raw candidates
     and the proposal against the reference's, at the sampler tests' rtol
-    (the proposal at the MAP iteration's)."""
+    (the proposal at the MAP iteration's).  ``sweep-fixed`` runs the
+    device loop's body (``device_iteration``: NUTS transitions to their
+    cap of steps, no host sync) on the sweep route, its draws read and its
+    evaluation written at a device index."""
+    method, _, fixed = method.partition("-")
     it = iteration
     _, (tfn, ttp, _, _) = inputs
     keys = jax.random.split(jax.random.PRNGKey(7), S)
@@ -459,9 +464,18 @@ def test_one_posterior_iteration_matches(inputs, iteration, fit_method,
                                  device="cpu")
     draws = _replayed_draws(keys, it["raw"], fit_method, 2)
     tX, ty, tmk = T(Xbuf), T(ybuf), T(mask)
-    out = tc.run_iteration(tfn, tstack, ttp, tX, ty, torch.zeros_like(ty),
-                           tmk, warm, draws, 2, scfg_t, tcfg_t, cfg_t)
-    params, samples = out[4], out[5]
+    if fixed:
+        params = tfit.tree_map(torch.clone, warm)
+        bufs = [tX.clone(), ty.clone(), torch.zeros_like(ty), tmk.clone()]
+        samples = tc.device_iteration(
+            tfn, tstack, ttp, bufs, params, tc._stack_draws([draws] * 3),
+            torch.tensor([2]), scfg_t, tcfg_t, cfg_t)
+        out = bufs
+    else:
+        out = tc.run_iteration(tfn, tstack, ttp, tX, ty,
+                               torch.zeros_like(ty), tmk, warm, draws, 2,
+                               scfg_t, tcfg_t, cfg_t)
+        params, samples = out[4], out[5]
     jsamples = convert.target_params(convert.to_numpy_dict(ref["samples"]),
                                      device="cpu")
     assert samples.raw_weights.shape == (S, POST["mixture_samples"], M)

@@ -634,3 +634,26 @@ def test_driver_on_the_card_matches_the_cpu(cuda):
                     **es.configuration)}))
         xs.append(run)
     np.testing.assert_allclose(xs[1], xs[0], rtol=1e-6)
+
+
+def test_graph_kernel_nodes_hold_each_captured_launch(cuda):
+    """``kernel_nodes`` reads from a captured graph one ``select`` node
+    for each launch that the wrapper counted while capturing."""
+    from scamlgp_tpu_torch.utils.cuda_graph import kernel_nodes
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(0), 8, 4),
+                        device=cuda)
+    sweep.sweep_inverse(A)      # builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = sweep.sweep_inverse.launches["select"]
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            inv, _ = sweep.sweep_inverse(A)
+    assert sweep.sweep_inverse.launches["select"] == before + 3
+    nodes = kernel_nodes(graph)
+    assert sum(n for k, n in nodes.items() if "sweep_" in k) == 3, nodes
+    graph.replay()
+    torch.cuda.synchronize()
+    inv_p, _ = sweep.sweep_inverse_reference(A)
+    assert (inv - inv_p).abs().max().item() <= 1e-4 * \
+        inv_p.abs().max().item()

@@ -67,14 +67,19 @@ def jax_runs(problem):
     return jax.jit(runs)(problem["stack"])
 
 
-@pytest.mark.parametrize("steps", [1, 2, 3, 4, 5])
-def test_first_iterates_match_optax(problem, jax_runs, steps):
+@pytest.mark.parametrize("steps,fixed_trips", [
+    *[(k, False) for k in range(1, 6)], *[(k, True) for k in range(1, 6)]],
+    ids=[*map(str, range(1, 6)), *(f"{k}-fixed" for k in range(1, 6))])
+def test_first_iterates_match_optax(problem, jax_runs, steps, fixed_trips):
+    """The early-exit line search and the fixed-trip one (every search
+    runs its 20 trips, the campaign's device loop) against optax."""
     jp, jv = jax_runs[0][steps - 1]
     tstack = gp_params(to_numpy_dict(problem["stack"]), device="cpu")
     obj = _torch_objective(problem)
     x0 = tfit.flatten(tstack, 1)
     tp, tv = tfit.lbfgs_minimize(
-        lambda x: obj(tfit.unflatten(x, tstack, 1)), x0, steps)
+        lambda x: obj(tfit.unflatten(x, tstack, 1)), x0, steps,
+        fixed_trips=fixed_trips)
     np.testing.assert_allclose(tp.numpy(), tfit.flatten(
         gp_params(to_numpy_dict(jp), device="cpu"), 1).numpy(),
         rtol=1e-8, atol=1e-10)
