@@ -3,6 +3,8 @@ many studies share its batch.
 
     python -m scamlgp_tpu_torch.batch_probe [--device cuda] [--tasks 128]
         [--points 32] [--studies 4] [--chunk 2] [--limit 20000]
+    python -m scamlgp_tpu_torch.batch_probe --meta-fit [--tasks 32]
+        [--chunk 8] [--steps 2] [--restarts 5] [--mll-method sweep|chol]
 
 One lock-step iteration (``parallel.campaign.run_iteration``: iteration 2
 with two points observed, the draws of ``iteration_generator(0, 2)``, the
@@ -21,6 +23,12 @@ outputs do not (the operation that depends on the batch size) with its
 shapes, and the first operation whose output differs at all.  The source
 stack is the meta-data conditioned at the initial hyperparameters, without
 a meta-fit: that does not change which operation depends on the batch.
+
+``--meta-fit`` probes the source GPs' meta-fit instead: ``--steps`` L-BFGS
+steps of ``meta_fit_task_stack`` on ``many_tasks``' quadratic meta-data
+(``--tasks`` tasks of ``--points`` points, its restart stack) against the
+same fit of its first ``--chunk`` tasks, as a task-sharded fit over
+``--tasks / --chunk`` slots runs them.
 """
 
 from __future__ import annotations
@@ -152,6 +160,20 @@ def iteration(fn, tp, md, S, cfg, device):
                             2, scfg, tcfg, cfg)
 
 
+def meta_fit(data: m.TaskData, T: int, args):
+    """``args.steps`` steps of the meta-fit of the first T tasks of
+    ``data``, from ``many_tasks``' restart stack."""
+    from scamlgp_tpu_torch.many_tasks import init_stack
+
+    cfg = gp.source_gp_config()
+    sub = m.TaskData(*[leaf[:T] for leaf in data])
+    init = tc.fit_lib.tree_map(lambda leaf: leaf[:T],
+                               init_stack(cfg, data, args.restarts))
+    return m.meta_fit_task_stack(sub, cfg, num_steps=args.steps,
+                                 mll_method=args.mll_method,
+                                 init_stack=init)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None)
@@ -161,10 +183,40 @@ def main(argv=None) -> dict:
     ap.add_argument("--chunk", type=int, default=2)
     ap.add_argument("--evals", type=int, default=4)
     ap.add_argument("--limit", type=int, default=20000)
+    ap.add_argument("--meta-fit", action="store_true",
+                    help="probe the meta-fit of --tasks against --chunk "
+                         "tasks")
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--restarts", type=int, default=5)
+    ap.add_argument("--mll-method", default="sweep",
+                    choices=["chol", "sweep"])
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if args.meta_fit:
+        from scamlgp_tpu_torch.many_tasks import build_meta
+
+        data = build_meta(args.tasks, args.points, device)
+        runs = {}
+        for T in (args.tasks, args.chunk):
+            rec = Recorder(args.limit)
+            with rec:
+                res = meta_fit(data, T, args)
+            runs[T] = (rec.calls, res)
+        (calls_f, res_f), (calls_p, res_p) = (runs[args.tasks],
+                                              runs[args.chunk])
+        leaves = list(zip(tc.fit_lib.tree_leaves(res_f),
+                          tc.fit_lib.tree_leaves(res_p)))
+        out = {"device": str(device), "meta_fit": True,
+               "tasks": args.tasks, "chunk": args.chunk,
+               "points": args.points, "steps": args.steps,
+               "restarts": args.restarts, "mll_method": args.mll_method,
+               "recorded": [len(calls_f), len(calls_p)],
+               "results_equal": all(same(rows(a, b), b) for a, b in leaves),
+               **compare(calls_f, calls_p)}
+        print(json.dumps(out), flush=True)
+        return out
     fn, tp, md, _ = campaign_inputs_from_benchmark(
         Quadratic, [args.points] * args.tasks, range(args.studies),
         noise_std=0.05, dtype=torch.float32, device=device)

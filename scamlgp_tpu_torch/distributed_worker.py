@@ -16,10 +16,14 @@ required: give every launch of one group the same free port.
 
 ``--slots-per-process`` is the number of this process's slots:
 ``--device cpu`` or ``cuda:0`` repeated, or, for ``cuda`` with several
-cards, distinct cards (``parallel.mesh.local_slots``).  Slots on one device
-run one after another.  ``--device`` defaults to ``cuda``; without a CUDA
-device the worker fails unless ``--device cpu`` is given.  A CPU process
-runs one torch thread.  ``--loop device`` runs each of the process's rows
+cards, distinct cards (``parallel.mesh.local_slots``).  A process's slots
+run one after another, or at once with ``--slots-at-once``
+(``parallel.mesh.run_slots``), on one device too.  ``--repeats N`` runs
+the campaign N times on the same inputs (the reference's warm repeats):
+the line's ``run_times_s`` holds every run's seconds, the rest is the last
+run's.  ``--device`` defaults to ``cuda``; without a CUDA device the
+worker fails unless ``--device cpu`` is given.  A CPU process runs one
+torch thread.  ``--loop device`` runs each of the process's rows
 as ``run_campaign(loop="device")`` does (on a card: a CUDA graph a row,
 replayed every iteration after the first); the default is ``host``.
 """
@@ -83,6 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host:port where process 0 listens (default: "
                          "SCAMLGP_COORDINATOR)")
     ap.add_argument("--slots-per-process", type=int, default=1)
+    ap.add_argument("--slots-at-once", action="store_true",
+                    help="run this process's slots at once, a host thread "
+                         "each")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="run the campaign this many times; every run's "
+                         "seconds are recorded (the first includes the "
+                         "kernels' first use)")
     ap.add_argument("--device", default=None,
                     help="cuda (default), cuda:N or cpu")
     ap.add_argument("--benchmark", default="Branin",
@@ -133,7 +144,8 @@ def main(argv=None) -> dict:
                     process_id=args.process_id)
     try:
         slots = local_slots(device, args.slots_per_process, args.process_id)
-        mesh = dist.global_mesh(task=1, devices=slots)
+        mesh = dist.global_mesh(task=1, devices=slots,
+                                at_once=args.slots_at_once)
         t0 = time.perf_counter()
         if args.inputs:
             tps, md, optima = load_campaign_inputs(args.inputs, slots[0])
@@ -149,10 +161,14 @@ def main(argv=None) -> dict:
         fn = TORCH_FUNCTIONS[args.benchmark]
         if slots[0].type == "cuda":
             torch.cuda.reset_peak_memory_stats(slots[0])
-        GLOBAL_TIMER.reset()
-        t0 = time.perf_counter()
-        res = run_campaign(fn, tps, md, mesh=mesh, **campaign_kwargs(args))
-        run_s = time.perf_counter() - t0
+        run_times = []
+        for _ in range(max(args.repeats, 1)):
+            GLOBAL_TIMER.reset()
+            t0 = time.perf_counter()
+            res = run_campaign(fn, tps, md, mesh=mesh,
+                               **campaign_kwargs(args))
+            run_times.append(time.perf_counter() - t0)
+        run_s = run_times[-1]
         idx, X = dist.local_study_rows(res.X, mesh)
         _, y = dist.local_study_rows(res.y, mesh)
         _, y_clean = dist.local_study_rows(res.y_clean, mesh)
@@ -167,6 +183,7 @@ def main(argv=None) -> dict:
                 "mesh": mesh.shape, "local_studies": int(idx.size),
                 "loop": args.loop, "graph": res.graph,
                 "setup_s": setup_s, "run_s": run_s,
+                "run_times_s": run_times,
                 "meta_fit_s": res.meta_fit_seconds,
                 "iteration_s": res.iteration_seconds,
                 "launches": {k: sum(v) for k, v in res.launches.items()},

@@ -48,7 +48,9 @@ def _is_node(tree) -> bool:
 
 
 def tree_leaves(tree) -> list:
-    if _is_node(tree):
+    """The leaves of a tree, in order; plain tuples and lists (a function's
+    several results) are walked as NamedTuples are."""
+    if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 

@@ -34,7 +34,6 @@ argument ``route_blocked`` here.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -226,7 +225,7 @@ def blocked_chol_inverse_reference(A: torch.Tensor):
 _P = ctypes.c_void_p
 
 
-@functools.lru_cache(maxsize=None)
+@cuda_build.once_per_key
 def kernel_lib(extra: tuple = ()):
     """The kernel library built with ``extra`` nvcc flags, its entry points
     typed for ctypes."""
@@ -268,7 +267,7 @@ def blocked_chol_inverse(A: torch.Tensor, variant=None):
     if not A.is_contiguous():
         raise ValueError("blocked_chol_inverse needs a contiguous tensor")
     out = _launch(A, variant)
-    blocked_chol_inverse.launches[variant] += 1
+    cuda_build.count_launch(blocked_chol_inverse.launches, variant)
     return out
 
 

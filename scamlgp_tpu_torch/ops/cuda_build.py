@@ -8,6 +8,10 @@ source, the headers of ``csrc/`` and the flags, so an edited source or
 header is rebuilt.  Nothing is built or
 loaded when this module is imported: ``load`` builds at first use, and
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
+Slots on host threads (``parallel.mesh.run_slots``) reach these at once:
+``once_per_key`` lets one thread build and set up an entry while the others
+wait, and ``count_launch`` ticks the kernels' launch counters under one
+lock.
 
 A source is built with ``NVCC_FLAGS``, its own ``SOURCE_FLAGS`` and the
 caller's ``extra`` flags (a profiling build's ``-D`` macro, ``-Xptxas -v``);
@@ -24,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -42,6 +47,34 @@ SOURCE_FLAGS = {"sweep_inverse": ("-fmad=false",),
                 "sweep_variants": ("-fmad=false",)}
 #: library path -> nvcc's output, for each library built in this process
 BUILD_LOGS: dict = {}
+#: guards every kernel wrapper's launch counter (``count_launch``)
+LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, key) -> None:
+    """One more launch of ``key`` in a wrapper's ``counts`` (its dict of
+    counts by scheme, or ``vars(wrapper)`` and ``"launches"`` for a single
+    count), under LAUNCH_LOCK: a read-modify-write that threads would
+    otherwise lose."""
+    with LAUNCH_LOCK:
+        counts[key] += 1
+
+
+def once_per_key(fn):
+    """``functools.lru_cache(maxsize=None)`` whose calls run one at a time:
+    threads that ask at first use wait for the one that builds and sets up
+    the entry, so no source is built twice and no caller sees an entry
+    half set up (a ctypes function without its argument types)."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with lock:
+            return cached(*args, **kwargs)
+
+    call.cache_clear = cached.cache_clear
+    return call
 
 
 def _nvcc() -> str:
@@ -100,7 +133,7 @@ def build_all(names=SOURCES, extra: tuple = ()) -> list:
     return outs
 
 
-@functools.lru_cache(maxsize=None)
+@once_per_key
 def load(name: str, extra: tuple = ()) -> ctypes.CDLL:
     """The kernel library of ``csrc/<name>.cu`` built with ``extra`` flags,
     built at first use."""

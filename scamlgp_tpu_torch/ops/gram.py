@@ -30,7 +30,6 @@ port.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -110,7 +109,7 @@ def launch_geometry(n: int, m: int, d: int,
 _C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=None)
+@cuda_build.once_per_key
 def _kernel_fn(dtype: torch.dtype, extra: tuple = ()):
     """The entry point for ``dtype`` and the error-string function of
     ``csrc/gram.cu`` built with ``extra`` flags (a profiling build's
@@ -172,7 +171,7 @@ def run(x, z, ls, os_, out, extra: tuple = ()) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("rbf_gram kernel launch failed: "
                            + err_string(err).decode())
-    rbf_gram.launches += 1
+    cuda_build.count_launch(vars(rbf_gram), "launches")
     return out
 
 

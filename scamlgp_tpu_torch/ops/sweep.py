@@ -37,7 +37,6 @@ with its analytic VJP (``:454-470``) and ``mll_via_sweep`` (``:473``).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -270,7 +269,7 @@ _C_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-@functools.lru_cache(maxsize=None)
+@cuda_build.once_per_key
 def _kernel_fn(variant: str, dtype: torch.dtype, extra: tuple = ()):
     """The C entry point of ``variant``'s kernel in ``dtype`` (the source
     built with ``extra`` flags), and the library's error-string
@@ -346,7 +345,7 @@ def sweep_inverse(A: torch.Tensor, variant: str = "select"):
     if not A.is_contiguous():
         raise ValueError("sweep_inverse needs a contiguous tensor")
     out = _launch(A, variant)
-    sweep_inverse.launches[variant] += 1
+    cuda_build.count_launch(sweep_inverse.launches, variant)
     return out
 
 

@@ -21,9 +21,12 @@ iteration; on the CPU the body runs eagerly for every iteration.
 With a ``mesh`` (``parallel/mesh.py``) the studies are split over its
 study rows, padded to a multiple of them with copies of study 0: each row
 of this process runs its studies' meta-fit and iterations on the row's
-first slot, the rows of one iteration one after another, and on a mesh
-over several processes (``parallel/distributed.py``) a process runs its
-own rows only.
+first slot, the rows of this process in lock-step, iteration by
+iteration, one after another or, on a mesh with ``at_once``, at once
+(``run_slots``: a host thread and a CUDA stream a row), and on a mesh over
+several processes (``parallel/distributed.py``) a process runs its own
+rows only.  Study chunks (``study_chunk``) and
+meta-fit chunks still run one after another: they bound memory.
 
 The target fit is ``CampaignConfig.fit_method``'s: ``"map"``, the MAP fits
 of all S studies x restarts as one batched L-BFGS; ``"hmc"`` or
@@ -48,8 +51,10 @@ reference's names (``campaign_stage_inputs``, ``campaign_meta_fit``,
 ``iteration_draws``, ``iteration_fit_target`` (a MAP fit) or
 ``iteration_sample_target`` (a posterior fit), ``iteration_acq_state``,
 ``iteration_propose`` and ``iteration_benchmark``; checkpoint writes are
-``campaign_checkpoint``.  Each stage synchronizes the card before its
-clock is read.  The device loop times no stage within an iteration.
+``campaign_checkpoint``.  Each stage synchronizes its thread's stream
+before its clock is read; the ``iteration_*`` stages are each row's own
+(``utils.profiling.Timer``).  The device loop times no stage within a
+captured iteration.
 
 Randomness comes from host ``torch.Generator`` s; their draws move to the
 device.  The meta-fit's restarts come from one generator seeded with
@@ -81,7 +86,12 @@ from scamlgp_tpu_torch.models import hmc as hmc_lib
 from scamlgp_tpu_torch.models import scamlgp as m
 from scamlgp_tpu_torch.models import vi as vi_lib
 from scamlgp_tpu_torch.ops import inverse_mll
-from scamlgp_tpu_torch.parallel.mesh import Mesh, cat_rows, pad_to_multiple
+from scamlgp_tpu_torch.parallel.mesh import (
+    Mesh,
+    cat_rows,
+    pad_to_multiple,
+    run_slots,
+)
 from scamlgp_tpu_torch.utils import checkpoint as ckpt
 from scamlgp_tpu_torch.utils import cuda_graph
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
@@ -530,18 +540,26 @@ def _sync_errors():
         torch.cuda.set_sync_debug_mode(before)
 
 
-def _device_loop(step: Callable, runs: list, E: int, counts: list):
+def _device_loop(step: Callable, runs: list, E: int, counts: list,
+                 at_once: bool = False):
     """Run ``step(run)`` (one iteration of a run's rows, then its index
     advanced) for iterations 0 .. E-1 of every run, each iteration's runs
-    one after another.  Appends each iteration's cumulative launch counts
-    to ``counts``; returns (iteration seconds, graph statistics or None).
+    in ``run_slots``, at once where ``at_once``.  Appends each iteration's
+    cumulative launch counts to ``counts``; returns (iteration seconds,
+    graph statistics or None).
 
-    On the CPU every iteration runs eagerly.  On a card iteration 0 runs
-    eagerly on a side stream (the warm-up: the kernels are built, loaded
-    and configured there); then each run's ``step`` is captured once as a
-    ``torch.cuda.CUDAGraph`` and replayed for iterations 1 .. E-1, with no
-    host synchronization between replays.  Capture and replays run under
-    ``set_sync_debug_mode("error")``; a failure to capture or replay
+    On the CPU every iteration runs eagerly, the runs in ``run_slots``.  On
+    a card iteration 0 runs eagerly on a side stream (the warm-up: the
+    kernels are built, loaded and configured there), the runs in
+    ``run_slots``; then each run's ``step`` is captured once as a
+    ``torch.cuda.CUDAGraph``, on a capture stream of the run's device, and
+    replayed for iterations 1 .. E-1, each run's replays on a stream of its
+    own, with no host synchronization between replays.  The captures run
+    one after another in the caller's thread: PyTorch allows one capture
+    at a time in a process (``torch.cuda.graph`` synchronizes the device
+    and empties the allocator's cache on entry).  Capture and replays run
+    under ``set_sync_debug_mode("error")``, which is global to the process
+    and so set here, around every run; a failure to capture or replay
     raises.  Seconds are CUDA event times (the warm-up's, then each
     replay's).  A replay does not tick the kernels' launch counters: its
     launches in ``counts`` are those counted while its graph was
@@ -552,12 +570,16 @@ def _device_loop(step: Callable, runs: list, E: int, counts: list):
     around the capture; the peaks count from the caller's last
     ``torch.cuda.reset_peak_memory_stats``, which this never calls."""
     devices = list(dict.fromkeys(torch.device(r["device"]) for r in runs))
+    slots = [r["device"] for r in runs]
+
+    def step_all():
+        run_slots(lambda j: step(runs[j]), slots, at_once)
+
     if all(dev.type != "cuda" for dev in devices):
         seconds = []
         for _ in range(E):
             t0 = time.perf_counter()
-            for run in runs:
-                step(run)
+            step_all()
             seconds.append(time.perf_counter() - t0)
             counts.append(inverse_mll.kernel_launches())
         return seconds, None
@@ -577,12 +599,17 @@ def _device_loop(step: Callable, runs: list, E: int, counts: list):
             end[dev].record(torch.cuda.current_stream(dev))
         return start, end
 
-    def per_run(fn):
-        def body():
-            for run in runs:
-                with torch.cuda.device(run["device"]):
-                    fn(run)
-        return body
+    replay_streams = [torch.cuda.Stream(run["device"]) for run in runs]
+
+    def replay_all():
+        """Each run's graph replayed on its own stream, after the caller's
+        stream of its device and before the caller's next work there."""
+        for run, stream in zip(runs, replay_streams):
+            stream.wait_stream(torch.cuda.current_stream(run["device"]))
+            with torch.cuda.stream(stream):
+                run["graph"].replay()
+        for run, stream in zip(runs, replay_streams):
+            torch.cuda.current_stream(run["device"]).wait_stream(stream)
 
     for dev in devices:
         torch.cuda.synchronize(dev)
@@ -593,7 +620,7 @@ def _device_loop(step: Callable, runs: list, E: int, counts: list):
     with contextlib.ExitStack() as streams:
         for dev in devices:
             streams.enter_context(torch.cuda.stream(side[dev]))
-        events = [timed(per_run(step))]
+        events = [timed(step_all)]
     for dev in devices:
         torch.cuda.current_stream(dev).wait_stream(side[dev])
         torch.cuda.synchronize(dev)
@@ -611,7 +638,8 @@ def _device_loop(step: Callable, runs: list, E: int, counts: list):
             with torch.cuda.device(run["device"]):
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 t0 = time.perf_counter()
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(
+                        run["device"])):
                     with _sync_errors():
                         step(run)
                 stats["capture_seconds"].append(time.perf_counter() - t0)
@@ -631,7 +659,7 @@ def _device_loop(step: Callable, runs: list, E: int, counts: list):
                                            for dev in devices]
         with _sync_errors():
             for _ in range(1, E):
-                events.append(timed(per_run(lambda run: run["graph"].replay())))
+                events.append(timed(replay_all))
         for dev in devices:
             torch.cuda.synchronize(dev)
         for _ in range(1, E):
@@ -785,6 +813,7 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
         lanes = [(a, b, mesh.devices[r, 0])
                  for r, a, b in mesh.study_slices(S) if r in mine]
     held = [s for a, b, _ in lanes for s in range(a, min(b, S))]
+    at_once = mesh is not None and mesh.at_once
     task_params = {k: _pad_rows(v, pad) for k, v in state.task_params.items()}
     meta_data = _pad_rows(state.meta_data, pad)
     Xbuf, ybuf, yclean, mask = (_pad_rows(t, pad) for t in (
@@ -811,12 +840,19 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                       for c in range(meta_fit_chunks)]
         else:
             pieces = [(a * M, b * M, dev) for a, b, dev in lanes]
-        parts = [m.meta_fit_task_stack(
-            _to(_rows(flat, a, b), dev), source_cfg,
-            num_steps=meta_fit_steps, mll_method=cfg.mll_method,
-            init_stack=_to(_rows(init_stack, a, b), dev),
-            route_blocked=cfg.route_blocked,
-            sweep_variant=cfg.sweep_variant) for a, b, dev in pieces]
+        inputs = [(_to(_rows(flat, a, b), dev),
+                   _to(_rows(init_stack, a, b), dev)) for a, b, dev in pieces]
+
+        def fit_piece(j):
+            return m.meta_fit_task_stack(
+                inputs[j][0], source_cfg, num_steps=meta_fit_steps,
+                mll_method=cfg.mll_method, init_stack=inputs[j][1],
+                route_blocked=cfg.route_blocked,
+                sweep_variant=cfg.sweep_variant)
+
+        # meta-fit chunks one after another; a mesh's rows at once where
+        # it says so
+        parts = run_slots(fit_piece, [dev for *_, dev in pieces], at_once)
         parts = [fit_lib.tree_map(
             lambda leaf: leaf.reshape((-1, M) + leaf.shape[1:]), part)
             for part in parts]
@@ -851,7 +887,8 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
             "checkpoint has per-study progress at different iterations "
             "(written by a study-chunked campaign); resume with the same "
             "study_chunk setting instead of study_chunk=0")
-    # chunks run one after another; a mesh's rows run each iteration in turn
+    # chunks run one after another; a mesh's rows run each iteration in
+    # turn, or at once where it says so
     pairs = list(zip(lanes, lane_stacks))
     groups = [[pair] for pair in pairs] if chunk else [pairs]
     iteration_seconds = []
@@ -920,7 +957,8 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                     source_cfg, target_cfg, cfg)
                 run["index"].add_(1)
 
-            iteration_seconds, graph = _device_loop(step, runs, E, counts)
+            iteration_seconds, graph = _device_loop(step, runs, E, counts,
+                                                    at_once)
             merge(runs)
             merge_samples(runs)
             groups = []
@@ -945,15 +983,20 @@ def run_campaign(benchmark_fn: Callable, task_params, meta_data: m.TaskData,
                         draws = _pad_rows(iteration_draws(
                             iteration_generator(seed, i), cfg, target_cfg, S,
                             M, d, dtype, device), pad)
-                    for run in runs:
-                        a, b = run["rows"]
-                        *run["bufs"], run["params"], run["samples"] = (
-                            run_iteration(
-                                benchmark_fn, run["stack"],
-                                run["task_params"], *run["bufs"],
-                                run["params"],
-                                _to(_rows(draws, a, b), run["device"]), i,
-                                source_cfg, target_cfg, cfg))
+                    row_draws = [_to(_rows(draws, *run["rows"]),
+                                     run["device"]) for run in runs]
+
+                    def row(j):
+                        run = runs[j]
+                        return run_iteration(
+                            benchmark_fn, run["stack"], run["task_params"],
+                            *run["bufs"], run["params"], row_draws[j], i,
+                            source_cfg, target_cfg, cfg)
+
+                    outs = run_slots(row, [run["device"] for run in runs],
+                                     at_once)
+                    for run, out in zip(runs, outs):
+                        *run["bufs"], run["params"], run["samples"] = out
                 iteration_seconds.append(time.perf_counter() - t0)
                 counts.append(inverse_mll.kernel_launches())
                 stopped = stop_after is not None and i + 1 >= i0 + stop_after

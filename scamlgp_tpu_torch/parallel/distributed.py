@@ -69,7 +69,8 @@ def _rank_world():
 
 
 def global_mesh(task: Optional[int] = None,
-                devices: Optional[Sequence] = None) -> Mesh:
+                devices: Optional[Sequence] = None,
+                at_once: bool = False) -> Mesh:
     """(study, task) mesh over the slots of every process of the group.
 
     Rows are process-major: the ``study`` axis spans processes and the
@@ -82,6 +83,7 @@ def global_mesh(task: Optional[int] = None,
             slot count.  Default 1 (every slot one study row).
         devices: this process's slots; every CUDA device by default (a
             ``RuntimeError`` where there is none).
+        at_once: run this process's slots at once (``Mesh``).
     """
     local = [torch.device(d) for d in (devices if devices is not None
                                        else cuda_devices())]
@@ -102,7 +104,8 @@ def global_mesh(task: Optional[int] = None,
     flat = [d for slots in everyone for d in slots]
     return Mesh(device_grid(flat, (world * rows, task)),
                 ranks=np.repeat(np.arange(world), rows), rank=rank,
-                group=dist.group.WORLD if dist.is_initialized() else None)
+                group=dist.group.WORLD if dist.is_initialized() else None,
+                at_once=at_once)
 
 
 def _leaves(tree) -> list:

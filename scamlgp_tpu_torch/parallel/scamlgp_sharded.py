@@ -8,7 +8,10 @@ global outcome normalizer and the weighted source mixture of the target
 MLL, are the JAX package's ``psum`` reductions: each slot's partial is moved
 to the first slot and the partials are summed there in slot order.
 Autograd carries the target fit's gradients back through that sum to each
-slot's own weight shard.  Slots on one device run one after another.
+slot's own weight shard.  The slots' meta-fits and source caches run in
+``run_slots``, at once on a mesh with ``at_once`` (a host thread and a CUDA
+stream a slot); the target fit's per-step sums stay in slot order in the
+caller's thread, since their order is part of their bits.
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ from scamlgp_tpu_torch.bo.optimize import _B1, _B2, _EPS
 from scamlgp_tpu_torch.models import fit as fit_lib
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.models import scamlgp as m
-from scamlgp_tpu_torch.parallel.mesh import Mesh, cat_rows, split_rows
+from scamlgp_tpu_torch.parallel.mesh import (
+    Mesh,
+    cat_rows,
+    run_slots,
+    split_rows,
+)
 from scamlgp_tpu_torch.utils.standardize import _MIN_STD
 
 
@@ -56,8 +64,10 @@ def meta_fit_sharded(data: m.TaskData, cfg: gp.GPConfig,
     ``init_stack`` with leading (padded T, num_restarts + 1) axes, and then
     split: a task's fit does not depend on the mesh.  Each slot runs
     ``meta_fit_task_stack`` on its tasks (no communication), its MLL on
-    ``mll_method``'s route (``chol`` by default, as in the JAX package).
-    Returns the padded stack on the first slot's device.
+    ``mll_method``'s route (``chol`` by default, as in the JAX package),
+    the slots at once where the mesh says so, each giving the bits it gives
+    alone.  Returns the
+    padded stack on the first slot's device.
     """
     devices = mesh.task_devices()
     data = pad_task_data(data, len(devices))
@@ -67,10 +77,11 @@ def meta_fit_sharded(data: m.TaskData, cfg: gp.GPConfig,
         sampled = gp.sample_params(cfg, generator, d, data.X.dtype,
                                    batch_shape=(T, num_restarts))
         init_stack = fit_lib.stack_restarts(warm, sampled, batch_ndim=1)
-    parts = [m.meta_fit_task_stack(local, cfg, num_steps=num_steps,
-                                   mll_method=mll_method, init_stack=init)
-             for local, init in zip(split_rows(data, devices),
-                                    split_rows(init_stack, devices))]
+    shards = list(zip(split_rows(data, devices),
+                      split_rows(init_stack, devices)))
+    parts = run_slots(lambda j: m.meta_fit_task_stack(
+        shards[j][0], cfg, num_steps=num_steps, mll_method=mll_method,
+        init_stack=shards[j][1]), devices, mesh.at_once)
     return cat_rows(parts, devices[0])
 
 
@@ -135,18 +146,19 @@ def _cache_impl(source: m.SourceStack, source_cfg: gp.GPConfig, train_X,
     and the normalizer's sums over every task's observations."""
     devices = mesh.task_devices()
     home = devices[0]
-    means, covs, s1, s2, cnt = [], [], [], [], []
-    for local in split_rows(source, devices):
-        mu, cov = m.source_predict(local, source_cfg,
-                                   train_X.to(local.chol.device),
+    locals_ = split_rows(source, devices)
+    train = [train_X.to(dev) for dev in devices]
+
+    def slot(j):
+        local = locals_[j]
+        mu, cov = m.source_predict(local, source_cfg, train[j],
                                    full_cov=True)
-        means.append(mu)
-        covs.append(cov)
         ld = local.data
         y_orig = ld.y * ld.std[:, None] + ld.mean[:, None]
-        s1.append(torch.sum(y_orig * ld.mask))
-        s2.append(torch.sum((y_orig * ld.mask) ** 2))
-        cnt.append(torch.sum(ld.mask))
+        return (mu, cov, torch.sum(y_orig * ld.mask),
+                torch.sum((y_orig * ld.mask) ** 2), torch.sum(ld.mask))
+
+    means, covs, s1, s2, cnt = zip(*run_slots(slot, devices, mesh.at_once))
     return (cat_rows(means, home), cat_rows(covs, home),
             _slot_sum(s1, home), _slot_sum(s2, home), _slot_sum(cnt, home))
 

@@ -6,8 +6,10 @@
   ``key_averages()`` sums the time by operator and kernel.
 - ``Timer`` / ``GLOBAL_TIMER``: an accumulating wall-clock registry of named
   phases, reportable as one dict.  A phase given a CUDA device synchronizes
-  it before its clock is read, where the reference blocks on its results,
-  so a phase's time includes the device work that it queued.
+  the current stream of that device before its clock is read, where the
+  reference blocks on its results, so a phase's time includes the device
+  work that it queued.  Threads may time phases at once
+  (``parallel.mesh.run_slots``): each waits on its own stream only.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import contextlib
 import json
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict
@@ -42,9 +45,11 @@ def _is_cuda(device) -> bool:
 
 
 def synchronize(device) -> None:
-    """Wait for the work queued on ``device`` where it is a CUDA device."""
+    """Wait for the work queued on the current stream of ``device`` where it
+    is a CUDA device: all of the caller's work, and none of another
+    thread's stream."""
     if _is_cuda(device):
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def capturing(device) -> bool:
@@ -57,11 +62,19 @@ def capturing(device) -> bool:
 
 
 class Timer:
-    """Accumulating wall-clock timer keyed by phase name."""
+    """Accumulating wall-clock timer keyed by phase name.
+
+    A phase adds the wall time of the thread that ran it.  The campaign's
+    ``campaign_*`` stages run in the caller's thread, so they stay its wall
+    time; the ``iteration_*`` stages run in each study row's own thread
+    (``run_slots``), so once rows overlap their totals are the sum of every
+    row's time in the stage, which may exceed the wall time.
+    """
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def __call__(self, name: str, device=None):
@@ -77,17 +90,21 @@ class Timer:
             yield
         finally:
             synchronize(device)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            seconds = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += seconds
+                self.counts[name] += 1
 
     def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
 
     def report(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": self.totals[k], "count": self.counts[k],
-                    "mean_s": self.totals[k] / max(self.counts[k], 1)}
-                for k in sorted(self.totals)}
+        with self._lock:
+            return {k: {"total_s": self.totals[k], "count": self.counts[k],
+                        "mean_s": self.totals[k] / max(self.counts[k], 1)}
+                    for k in sorted(self.totals)}
 
     def log(self, level: int = logging.INFO) -> None:
         logger.log(level, "phase timings: %s", json.dumps(self.report()))

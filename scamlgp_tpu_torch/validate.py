@@ -6,7 +6,8 @@ with the JAX package's committed regret rows.
         [--mll-method sweep|chol|chol64] [--fit-method map|hmc|nuts|vi]
         [--route-blocked]
         [--sweep-variant select] [--optimum-method shgo] [--seed 0]
-        [--study-chunk K] [--shard-studies N] [--checkpoint PATH]
+        [--study-chunk K] [--shard-studies N [--slots-at-once]]
+        [--checkpoint PATH]
         [--stop-after N] [--loop host|device]
         [--out regrets.npy] [--compare curve.npy] [--device cuda]
         [--driver campaign|sequential]
@@ -46,8 +47,9 @@ iterations; the JSON line then summarizes the iterations completed.
 ``--shard-studies N`` splits the studies over a study mesh of N slots
 (``parallel.mesh``): the card repeated N times, or N cards where
 ``--device cuda`` finds that many (``mesh.local_slots``), each slot its
-rows' meta-fit and iterations, one after another on one card.  Not with
-``--study-chunk``.
+rows' meta-fit and iterations, the slots one after another, or at once
+with ``--slots-at-once`` (``mesh.run_slots``: a host thread and a CUDA
+stream a slot).  Not with ``--study-chunk``.
 
 ``--loop device`` runs the campaign's iterations with no host sync
 (``run_campaign(loop="device")``): on a card, iteration 0 eagerly and
@@ -238,6 +240,8 @@ def main(argv=None) -> dict:
                          "studies, one after another (0: all at once)")
     ap.add_argument("--shard-studies", type=int, default=None, metavar="N",
                     help="split the studies over a study mesh of N slots")
+    ap.add_argument("--slots-at-once", action="store_true",
+                    help="run the mesh's slots at once, a host thread each")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="checkpoint the campaign at PATH.npz; resumes "
                          "from it when it exists")
@@ -277,7 +281,8 @@ def main(argv=None) -> dict:
                          route_blocked=args.route_blocked,
                          sweep_variant=args.sweep_variant)
     mesh = (make_mesh(study=args.shard_studies, task=1,
-                      devices=local_slots(device, args.shard_studies))
+                      devices=local_slots(device, args.shard_studies),
+                      at_once=args.slots_at_once)
             if args.shard_studies else None)
     on_card = torch.device(device).type == "cuda"
     if on_card:

@@ -20,7 +20,7 @@ import torch
 import chip_smoke
 from scamlgp_tpu_torch.benchmarking import local_runner
 from scamlgp_tpu_torch.models import gp
-from scamlgp_tpu_torch.ops import blocked_chol, linalg, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, linalg, sweep
 from scamlgp_tpu_torch.parallel import campaign
 
 from tests.torch_threads import one_thread  # noqa: F401
@@ -167,8 +167,11 @@ def test_campaign_resume_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert line["phase"] == "campaign_resume"
     assert [r["run"] for r in line["runs"]] == [
         "uninterrupted", "stopped", "resumed", "chunked"]
-    assert [r["completed"] for r in line["runs"]] == [4, 2, 4, 4]
-    assert [len(r["iteration_s"]) for r in line["runs"]] == [4, 2, 2, 8]
+    E, stop = chip_smoke.RESUME_EVALS, chip_smoke.RESUME_STOP
+    assert [r["completed"] for r in line["runs"]] == [E, stop, E, E]
+    # the chunked run: two chunks of E iterations each
+    assert [len(r["iteration_s"]) for r in line["runs"]] == [
+        E, stop, E - stop, 2 * E]
     for name in ("resumed", "chunked"):
         eq = line["equal_to_uninterrupted"][name]
         assert eq["X"] and eq["y"] and eq["y_clean"]
@@ -355,13 +358,16 @@ def test_sharded_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
     task slots; Branin 4 studies x 2 evaluations, 2 tasks x 6 points, short
     fits), its plain version standing in for the kernel through a counting
     wrapper: the task-sharded fits held to the unsharded ones, the (2, 1)
-    mesh and two gloo ranks of CPU workers equal to the unsharded
-    campaign, every study covered once, each leg's seconds and launches on
-    the line."""
+    mesh and two gloo ranks of CPU workers equal to the unsharded campaign
+    and bit for bit to each other, the task slots at once bit for bit to
+    the slots in turn (each its tasks fitted alone), every study covered
+    once, each leg's seconds and launches and the slots' at once over in
+    turn on the line."""
     plain = sweep.sweep_inverse_reference
 
     def counted(A, variant="select"):
-        counted.launches[variant] += 1
+        # the slots call this from their threads at once
+        cuda_build.count_launch(counted.launches, variant)
         return plain(A, variant)
 
     counted.launches = sweep.sweep_inverse.launches
@@ -390,6 +396,13 @@ def test_sharded_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
     for name in ("mesh_2x1", "ranks_2"):
         eq = b["equal_to_unsharded"][name]
         assert eq["max_abs_diff_noise"] <= chip_smoke.CHUNK_TOL["noise"]
+    # the slots at once: their bits are the slots' in turn
+    assert a["at_once_bit_for_bit_in_turn"]
+    assert not b["bit_for_bit_required"]
+    assert all(b["equal_to_unsharded"]["ranks_vs_mesh"][f]
+               for f in ("X", "y", "y_clean"))
+    assert line["slots_at_once_over_in_turn"] == (
+        a["meta_fit_sharded_s"] / a["meta_fit_in_turn_s"])
     ranks = b["legs"]["ranks_2"]["ranks"]
     assert [r["local_studies"] for r in ranks] == [2, 2]
     assert all(r["launches"]["sweep_inverse"] == 0 for r in ranks)

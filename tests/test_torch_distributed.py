@@ -153,3 +153,33 @@ def test_local_study_rows_round_trip(n):
     idx, rows = dist.local_study_rows(x, mesh)
     np.testing.assert_array_equal(idx, np.arange(n))
     np.testing.assert_array_equal(rows, x.numpy())
+
+
+def test_bench_multihost_on_the_cpu(capsys):
+    """``bench_multihost`` at a CPU size (one study a rank, 2 ranks, 2
+    runs a process): its legs' processes and studies, each leg's time the
+    slowest process's runs after the first, and efficiencies that follow
+    from its times."""
+    from scamlgp_tpu_torch import bench_multihost
+
+    out = bench_multihost.main([
+        "--studies", "1", "--tasks", "2", "--points", "6", "--evals", "1",
+        "--ranks", "2", "--meta-fit-steps", "2", "--fit-steps", "2",
+        "--repeats", "2", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    legs = out["legs"]
+    assert list(legs) == ["base", "ranks_2", "control_2", "mesh_2"]
+    assert [len(legs[k]["processes"]) for k in legs] == [1, 2, 2, 1]
+    assert [p["local_studies"] for p in legs["ranks_2"]["processes"]] == [
+        1, 1]
+    assert legs["mesh_2"]["processes"][0]["mesh"] == {"study": 2, "task": 1}
+    # the JAX script's timing: a process's runs after the first, the
+    # slowest process
+    for leg in legs.values():
+        runs = [p["run_times_s"] for p in leg["processes"]]
+        assert all(len(r) == 2 for r in runs)
+        assert leg["t_s"] == max(r[1] for r in runs)
+        assert leg["cold_t_s"] == max(r[0] for r in runs)
+    (row,) = out["scaling"]
+    assert row["efficiency_raw"] == out["t_base_s"] / row["t_ranks_s"]
+    assert row["meets_target_raw"] == (row["efficiency_raw"] >= 0.7)

@@ -66,7 +66,8 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     the study unit, the checkpoints, the ablation driver, the Quadratic
     benchmark, the HMC, NUTS and ADVI samplers, and the experiment layer
     (its configuration modules, CLI, plotting, tabular benchmarks and
-    device adapters) are among the modules that it imports."""
+    device adapters), the mesh and the ports of ``run_many_tasks.py`` and
+    ``bench_multihost.py`` are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -105,7 +106,9 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.parallel.mesh",
             "scamlgp_tpu_torch.parallel.scamlgp_sharded",
             "scamlgp_tpu_torch.parallel.distributed",
-            "scamlgp_tpu_torch.distributed_worker"} <= names
+            "scamlgp_tpu_torch.distributed_worker",
+            "scamlgp_tpu_torch.many_tasks",
+            "scamlgp_tpu_torch.bench_multihost"} <= names
     configurations = {n.rsplit(".", 1)[1] for n in names if n.startswith(
         "scamlgp_tpu_torch.benchmarking.configurations.")}
     assert len(configurations - {"_shared", "styles"}) == 17

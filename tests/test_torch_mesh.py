@@ -93,10 +93,11 @@ def test_split_and_cat_rows_round_trip():
 
 def test_local_runner_meshes_several_cards(monkeypatch):
     """``local_runner``'s campaign route lays no study mesh, also where
-    there are several cards: a mesh's rows run one after another, slower
-    than one batched campaign, so every study stays in one batch on one
-    device (the card count patched; the campaign is stopped before it
-    touches a card)."""
+    there are several cards: a mesh's rows run at once on host threads,
+    but they share the host's Python dispatch, and on four cards the
+    (4, 1) mesh was 10-13x slower than one batched campaign on one card
+    (PERF.md), so every study stays in one batch on one device (the card
+    count patched; the campaign is stopped before it touches a card)."""
     from scamlgp_tpu_torch.benchmarking import local_runner as lr
 
     class Stop(Exception):
