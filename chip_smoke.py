@@ -38,6 +38,23 @@ Phases, each printing one JSON line with its own seconds:
    the port launches this kernel, as none of the JAX package does: its
    count in the kernels line is this phase's, every launch of the phase
    (``gram.run`` counts each, the timed ones included);
+3c. probes: the sweep's two loop-shape probes (``ops/probes.py``,
+   ``csrc/probe_kernels.cu``).  The rank-1 Cholesky kernel against its
+   plain version at (PROBE_CHECK_B, n, n), n in PROBE_CHECK_NS (the warp
+   and CTA paths), within TOL_PROBE_CHOL max|L| (``rsqrtf`` may round
+   otherwise than ``torch.rsqrt``), and against ``torch.linalg.cholesky``
+   (rel TOL_PROBE_LIBRARY); the traversal-floor kernel against its plain
+   version on the same batches, bit for bit (both round the multiply and
+   the add apart).  Then, with every launch count set to 0, the two probes'
+   entry points at their defaults (``bench_chol_fused_probe.run`` and
+   ``bench_traversal_floor.run`` at PROBE_SHAPE, PROBE_REPS chained
+   launches, each beside ``select``); each must launch its kernel.  Then
+   both kernels timed at PROBE_TIMED in turns with ``select`` and
+   ``torch.linalg.cholesky`` (each in the order given, then reversed),
+   beside their plain versions and bounds
+   (``profile_kernels.probe_bound``).  Then
+   ``validate_large_n`` (BASELINE config 5) at LARGE_N_SIZES, d = 6, 64
+   queries, whose every row, N = 2048 included, must pass;
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
@@ -218,10 +235,13 @@ import numpy as np
 import torch
 
 from scamlgp_tpu_torch import (
+    bench_chol_fused_probe,
     bench_sweep_n,
+    bench_traversal_floor,
     convert,
     distributed_worker,
     meta_fit_split,
+    validate_large_n,
 )
 from scamlgp_tpu_torch.benchmarking.benchmarks import (
     Branin,
@@ -262,6 +282,7 @@ from scamlgp_tpu_torch.ops import (
     inverse_mll,
     kernels,
     linalg,
+    probes,
     sweep,
 )
 from scamlgp_tpu_torch.parallel import scamlgp_sharded
@@ -277,6 +298,7 @@ from scamlgp_tpu_torch.profile_kernels import (
     bound,
     gram_times,
     library_inverse,
+    probe_bound,
     time_ms,
 )
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
@@ -392,13 +414,32 @@ CHUNK_TOL = {"noise": 1e-5, "first_x": 5e-3}
 SHARD_A = dict(tasks=128, points=32, sigma=0.05, target_points=8)
 SHARD_B = dict(studies=8, evals=2, tasks=8, points=32, sigma=1.0)
 SHARD_TASK_SLOTS, SHARD_TARGET_STEPS, SHARD_RANK_TIMEOUT = 4, 100, 300
-SHARD_META_STEPS = 25
+#: 12: at 25 steps the phase was the smoke's longest (185 s of a 991 s
+#: cold smoke on a slow host)
+SHARD_META_STEPS = 12
 SHARD_DIR = Path(__file__).resolve().parent / "build" / "smoke_sharded"
 #: the task-sharded meta-fit against the one-batch fit on the same
 #: restarts: ``meta_fit_split``'s rule and its reasons
 SHARD_META_TOL = meta_fit_split.SPLIT_META_TOL
 #: the slot-summed normalizer against the unsharded model's
 SHARD_NORM_RTOL = 1e-5
+
+# the probes phase: checks at (PROBE_CHECK_B, n, n); the entry points at
+# PROBE_SHAPE with PROBE_REPS chained launches (their defaults); the kernels
+# timed at PROBE_TIMED (B, N), PROBE_TIMED_REPS launches (the plain versions
+# PROBE_PLAIN_REPS); the large-N rows
+PROBE_CHECK_B = 256
+PROBE_CHECK_NS = (8, 32, 40, 128)
+PROBE_SHAPE = (4096, 128)
+PROBE_REPS = 30
+PROBE_TIMED = ((4096, 128), (1024, 32))
+PROBE_TIMED_REPS = 20
+PROBE_PLAIN_REPS = 2
+LARGE_N_SIZES = (512, 1024, 2048)
+#: the rank-1 Cholesky against its plain version, in max|L|
+TOL_PROBE_CHOL = 1e-5
+#: the rank-1 Cholesky against torch.linalg.cholesky, relative
+TOL_PROBE_LIBRARY = 1e-4
 
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -429,12 +470,14 @@ def reset_launches():
     """Every kernel's launch count to 0."""
     inverse_mll.reset_kernel_launches()
     gram.rbf_gram.launches = 0
+    probes.reset_kernel_launches()
 
 
 def launches_now() -> dict:
     """Every kernel's launch count, by name."""
     return {**inverse_mll.kernel_launches(),
-            "rbf_gram": gram.rbf_gram.launches}
+            "rbf_gram": gram.rbf_gram.launches,
+            **probes.kernel_launches()}
 
 
 def phase_device():
@@ -1898,6 +1941,122 @@ def phase_gram():
     return {**timed[0], "max_abs_err": max_err}, launches
 
 
+def ulps_apart(a, b) -> int:
+    """The largest distance in float32 units in the last place between two
+    float32 tensors of one sign pattern."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max().item())
+
+
+def probe_times(B, N, device):
+    """Both probe kernels at (B, N, N), in turns with ``select`` and the
+    library Cholesky (in this order, then reversed), beside their plain
+    versions and bounds (``probe_bound``); the kernels-line fields of
+    each."""
+    A = bench_chol_fused_probe.probe_batch(B, N, device)
+    calls = {"rank1_cholesky": lambda: probes.rank1_cholesky(A),
+             "traversal_floor": lambda: probes.traversal_floor(A),
+             "select": lambda: sweep.sweep_inverse(A),
+             "library_cholesky": lambda: torch.linalg.cholesky(A)}
+    turns = {k: [] for k in calls}
+    for k in [*calls, *reversed(calls)]:
+        turns[k].append(time_ms(calls[k], PROBE_TIMED_REPS))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    plain = {"rank1_cholesky": probes.rank1_cholesky_reference,
+             "traversal_floor": probes.traversal_floor_reference}
+    out = {}
+    for name, ref in plain.items():
+        bound_ms, bound_by = probe_bound(name, B, N)
+        out[name] = dict(
+            batch=B, n=N, ms=ms[name], turns_ms=turns[name],
+            plain_ms=time_ms(lambda: ref(A), PROBE_PLAIN_REPS),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=(ms["library_cholesky"] if name == "rank1_cholesky"
+                        else None),
+            select_ms=ms["select"])
+    del A
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_probes(device="cuda"):
+    """The two probe kernels against their plain versions; the probes'
+    entry points with the launch counts from 0; their times; the large-N
+    rows.  Returns each kernel's largest float32 error, its timings at
+    PROBE_TIMED[0] and at the other shapes, and the entry points'
+    launches."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    max_err = dict.fromkeys(probes.KERNELS, 0.0)
+    checks = []
+    for n in PROBE_CHECK_NS:
+        A = spd_batch(rng, PROBE_CHECK_B, n)
+        A = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), device=device)
+        L = probes.rank1_cholesky(A)
+        F = probes.traversal_floor(A)
+        sync(device)
+        Lp = probes.rank1_cholesky_reference(A)
+        Fp = probes.traversal_floor_reference(A)
+        lib = torch.linalg.cholesky(A)
+        err = (L - Lp).abs().max().item()
+        scale = Lp.abs().max().item()
+        rel_lib = (L - lib).abs().max().item() / lib.abs().max().item()
+        bitwise = bool(torch.equal(F, Fp))
+        row = dict(n=n, batch=PROBE_CHECK_B,
+                   geometry=sweep.launch_geometry(n)["path"],
+                   chol_max_abs_err=err, max_abs_l=scale,
+                   chol_rel_err_vs_library=rel_lib,
+                   floor_bitwise_equal=bitwise,
+                   floor_max_abs_err=(F - Fp).abs().max().item(),
+                   floor_max_ulps=ulps_apart(F, Fp))
+        checks.append(row)
+        check(err <= TOL_PROBE_CHOL * scale,
+              f"rank1_cholesky n={n}: {err} > {TOL_PROBE_CHOL} * {scale} "
+              "from its plain version")
+        check(rel_lib < TOL_PROBE_LIBRARY,
+              f"rank1_cholesky n={n}: {rel_lib} from torch.linalg.cholesky")
+        check(bitwise, f"traversal_floor n={n}: not bit for bit with its "
+              f"plain version ({row['floor_max_ulps']} ulps)")
+        max_err["rank1_cholesky"] = max(max_err["rank1_cholesky"], err)
+        max_err["traversal_floor"] = max(max_err["traversal_floor"],
+                                         row["floor_max_abs_err"])
+
+    # the main path: the probes' entry points, with every count from 0
+    reset_launches()
+    B, N = PROBE_SHAPE
+    chol_line = bench_chol_fused_probe.run(B, N, PROBE_REPS, device)
+    floor_line = bench_traversal_floor.run(B, N, PROBE_REPS, device)
+    sync(device)
+    launches = launches_now()
+    for name in probes.KERNELS:
+        check(launches[name] > 0,
+              f"probes: the entry points launched {name} no time")
+    for ratio in (chol_line["chol_over_sweep"],
+                  floor_line["sweep_pct_of_ceiling"]):
+        check(np.isfinite(ratio) and ratio > 0,
+              f"probes: a probe's ratio is {ratio}")
+
+    timed = {name: {} for name in probes.KERNELS}
+    for shape in PROBE_TIMED:
+        for name, t in probe_times(*shape, device).items():
+            timed[name][f"{shape[0]}x{shape[1]}"] = t
+
+    large_n = validate_large_n.run(LARGE_N_SIZES, 64, 6, device)
+    for row in large_n["rows"]:
+        check(row["pass"], f"validate_large_n N={row['N']}: {row}")
+    check(max(r["N"] for r in large_n["rows"]) == max(LARGE_N_SIZES),
+          "validate_large_n: the largest N did not run")
+    emit("probes", time.perf_counter() - t0, checks=checks,
+         chol_fused_probe=chol_line, traversal_floor_probe=floor_line,
+         timed=timed, large_n=large_n, launches=launches)
+    head_key = f"{PROBE_TIMED[0][0]}x{PROBE_TIMED[0][1]}"
+    head = {name: t[head_key] for name, t in timed.items()}
+    others = {name: {k: v for k, v in t.items() if k != head_key}
+              for name, t in timed.items()}
+    return max_err, head, others, launches
+
+
 class TimedBO(ScaMLGPBO):
     """``ScaMLGPBO`` that keeps itself and the driver stages' totals after
     the meta-fit and after each report, so that each evaluation's refit
@@ -2003,6 +2162,10 @@ REPLACES = {
         "scamlgp_tpu/ops/pallas_blocked_chol.py:244"),
     "rbf_gram": ("scamlgp_tpu_torch/csrc/gram.cu",
                  "scamlgp_tpu/ops/pallas_gram.py:31"),
+    "rank1_cholesky": ("scamlgp_tpu_torch/csrc/probe_kernels.cu",
+                       "scripts/bench_chol_fused_probe.py:49"),
+    "traversal_floor": ("scamlgp_tpu_torch/csrc/probe_kernels.cu",
+                        "scripts/bench_vpu_ceiling.py:50"),
 }
 
 
@@ -2012,7 +2175,12 @@ def main():
     max_err, head, others = phase_kernel()
     head["rbf_gram"], gram_launches = phase_gram()
     max_err["rbf_gram"] = head["rbf_gram"]["max_abs_err"]
+    probe_err, probe_head, probe_others, probe_launches = phase_probes()
+    max_err.update(probe_err)
+    head.update(probe_head)
+    others.update(probe_others)
     by_slice = {key: phase_slice(key) for key in SLICES}
+    by_slice["probes"] = probe_launches
     by_slice["device_loop"] = phase_device_loop()
     by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["posterior"] = phase_posterior()
@@ -2026,12 +2194,13 @@ def main():
     carrier = {name: key for key, sl in SLICES.items()
                for name in sl["kernels"]}
     carrier.update(sweep_inverse_pair="bench_sweep_n",
-                   sweep_inverse_blocked="bench_sweep_n")
+                   sweep_inverse_blocked="bench_sweep_n",
+                   rank1_cholesky="probes", traversal_floor="probes")
     launches = {name: by_slice[key][name] for name, key in carrier.items()}
     # no path launches the Gram kernel: its count is the gram phase's
     launches["rbf_gram"] = gram_launches
     kernels = []
-    for name in (*KERNELS, "rbf_gram"):
+    for name in (*KERNELS, "rbf_gram", *probes.KERNELS):
         source, replaces = REPLACES[name]
         kernels.append({
             "name": name,
@@ -2049,13 +2218,15 @@ def main():
             # the first version's time, timed in turns with this one
             "old_ms": head[name].get("old_ms"),
             # rbf_gram: its own time without the wrapper, the host's issue
-            # time of a call, and the first kernel through its wrapper
+            # time of a call, and the first kernel through its wrapper; the
+            # probes: select timed in turns with them at the same shape
             **{k: head[name][k] for k in ("ms_kernel", "host_ms",
-                                          "old_call_ms", "rbf_eager_ms")
+                                          "old_call_ms", "rbf_eager_ms",
+                                          "select_ms")
                if k in head[name]},
             # the kernel's times at its other timed shapes (select at the
             # hm6 p128 meta-fit's and the bench's N = 128, global at the
-            # smem variant's shape)
+            # smem variant's shape, the probes at (1024, 32, 32))
             "other_shapes": others.get(name, {}),
         })
     # select at the posterior samplers' batches

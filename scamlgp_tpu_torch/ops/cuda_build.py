@@ -34,17 +34,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 #: the kernel sources, one library each; ``baseline_kernels`` holds the
-#: first versions of the redesigned kernels, timed beside them and on no path
+#: first versions of the redesigned kernels, timed beside them and on no
+#: path; ``probe_kernels`` the sweep's loop-shape probes (``ops/probes.py``)
 SOURCES = ("sweep_inverse", "sweep_variants", "blocked_chol_inverse", "gram",
-           "baseline_kernels")
+           "baseline_kernels", "probe_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 #: each source's flags beyond NVCC_FLAGS.  The sweep kernels are built
 #: without FMA contraction: with it, their MLL on the campaign's nearly
 #: singular float32 systems lay 5x farther from float64 than their plain
-#: versions'; without it, it equals theirs (PERF.md, section 6).
+#: versions'; without it, it equals theirs (PERF.md, section 6).  The
+#: probes time the sweep's loop shape, so they are built as it is.
 SOURCE_FLAGS = {"sweep_inverse": ("-fmad=false",),
-                "sweep_variants": ("-fmad=false",)}
+                "sweep_variants": ("-fmad=false",),
+                "probe_kernels": ("-fmad=false",)}
 #: library path -> nvcc's output, for each library built in this process
 BUILD_LOGS: dict = {}
 #: guards every kernel wrapper's launch counter (``count_launch``)

@@ -36,6 +36,10 @@
   ``--baseline``: the first Gram kernel.
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
+  the loop-shape probes (``ops/probes.py``: the rank-1 Cholesky and the
+  traversal floor) at (1024, 32), (1024, 128) and (4096, 128), each in
+  turns with ``select`` (probe, select, select, probe), beside its plain
+  version, its bound and (the Cholesky) ``torch.linalg.cholesky``;
   the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
   blocked-Cholesky kernel beside their first versions (``BASELINES``),
   timed in turns (old, new, new, old), with ``select``, ``smem`` and the
@@ -68,7 +72,7 @@ import time
 
 import torch
 
-from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, gram, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, gram, probes, sweep
 from scamlgp_tpu_torch.ops import kernels as K
 
 PHASES = ("load", "diag", "trsm", "syrk", "trinv", "wtw_store")
@@ -433,6 +437,20 @@ def bound(B, N, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def probe_bound(name: str, B: int, N: int) -> tuple:
+    """Least time in ms for the work of the probe kernel ``name``
+    (``ops/probes.py``) on B float32 N x N blocks, and what bounds it: one
+    read of A and one write of the output at the HBM rate, against the
+    operations at the float32 peak.  A Cholesky factor needs N^3 / 3
+    operations (N^3 / 6 multiply-subtracts, LAPACK potrf's count); the
+    floor does 2 N^3 (a multiply and an add an element a step)."""
+    t_bytes = 2 * B * N * N * 4 / HBM_BYTES_PER_S
+    ops = {"rank1_cholesky": N ** 3 / 3, "traversal_floor": 2 * N ** 3}[name]
+    t_ops = B * ops / PEAK_OPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def cmd_ptxas():
     for name in cuda_build.SOURCES:
         path = cuda_build.build_all([name], ("-Xptxas", "-v"))[0]
@@ -590,6 +608,31 @@ def cmd_times():
             plain_ms=time_ms(lambda: sweep.sweep_inverse_reference(A), 2),
             library_ms=time_ms(lambda: library_inverse(A), 10),
             bound_ms=bound(B, N, A.dtype)[0]))
+    # the loop-shape probes beside select, in turns (probe, select, select,
+    # probe), with their plain versions, the library Cholesky and bounds
+    for B, N in ((1024, 32), (1024, 128), (4096, 128)):
+        A = spd(B, N)
+        A = 0.5 * (A + A.transpose(1, 2))
+        for name in probes.KERNELS:
+            kernel = getattr(probes, name)
+            plain = getattr(probes, f"{name}_reference")
+            out_k, out_p = kernel(A), plain(A)
+            torch.cuda.synchronize()
+            probe = lambda k=kernel: k(A)  # noqa: E731
+            select = lambda: sweep.sweep_inverse(A, "select")  # noqa: E731
+            t = [time_ms(f, 20) for f in (probe, select, select, probe)]
+            bound_ms, bound_by = probe_bound(name, B, N)
+            rows.append(dict(
+                kernel=name, batch=B, n=N,
+                bitwise_equal_plain=bool(torch.equal(out_k, out_p)),
+                max_abs_err=(out_k - out_p).abs().max().item(),
+                ms=(t[0] + t[3]) / 2, select_ms=(t[1] + t[2]) / 2,
+                turns_ms=t, plain_ms=time_ms(lambda p=plain: p(A), 2),
+                library_ms=(time_ms(lambda: torch.linalg.cholesky(A), 10)
+                            if name == "rank1_cholesky" else None),
+                bound_ms=bound_ms, bound_by=bound_by))
+        del A, out_k, out_p
+        torch.cuda.empty_cache()
     # the redesigned kernels beside their first versions, in turns (old,
     # new, new, old), with select and the library call at the same shapes
     for B, N in ((1024, 128), (4096, 128), (1024, 32)):

@@ -1,5 +1,5 @@
 """The chip smoke's float32 rounding guard, its ``chol64`` entry, its
-``campaign_resume`` phase and its ``posterior`` phase, on CPU tensors.
+``campaign_resume``, ``posterior`` and ``probes`` phases, on CPU tensors.
 
 ``chip_smoke.rounding`` holds each kernel of a slice's route to at most
 twice its plain version's distance from float64 on the slice's own
@@ -12,6 +12,7 @@ arithmetic are exercised without a card.
 
 import functools
 import json
+import time
 
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ import torch
 import chip_smoke
 from scamlgp_tpu_torch.benchmarking import local_runner
 from scamlgp_tpu_torch.models import gp
-from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, linalg, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, linalg, probes
+from scamlgp_tpu_torch.ops import sweep
 from scamlgp_tpu_torch.parallel import campaign
 
 from tests.torch_threads import one_thread  # noqa: F401
@@ -410,3 +412,64 @@ def test_sharded_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
         b["legs"][k]["sweep_inverse_launches"]
         for k in ("unsharded", "mesh_2x1")) > 0
     assert not (tmp_path / "sh").exists()
+
+
+def test_probes_phase_on_the_cpu(monkeypatch, capsys):
+    """The probes phase at a CPU size, counting wrappers around the plain
+    versions standing in for the kernels: the checks pass, the entry
+    points launch each probe as often as they call it (the factor once to
+    check it, then a warm-up and reps + 1 chained; the floor a warm-up and
+    reps), no other kernel, and every large-N row passes; the timings
+    (the card's event timer replaced by the host clock) carry the kernels
+    line's fields at both shapes."""
+    def counting(plain):
+        def counted(A):
+            cuda_build.count_launch(vars(counted), "launches")
+            return plain(A)
+        counted.launches = 0
+        return counted
+
+    monkeypatch.setattr(probes, "rank1_cholesky",
+                        counting(probes.rank1_cholesky_reference))
+    monkeypatch.setattr(probes, "traversal_floor",
+                        counting(probes.traversal_floor_reference))
+
+    def host_ms(fn, reps):
+        # the card's event timer, on the host clock
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    monkeypatch.setattr(chip_smoke, "time_ms", host_ms)
+    for name, value in (("PROBE_CHECK_B", 4), ("PROBE_CHECK_NS", (5, 33)),
+                        ("PROBE_SHAPE", (8, 16)), ("PROBE_REPS", 2),
+                        ("PROBE_TIMED", ((8, 16), (4, 5))),
+                        ("PROBE_TIMED_REPS", 1), ("PROBE_PLAIN_REPS", 1),
+                        ("LARGE_N_SIZES", (32, 64))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    max_err, head, others, launches = chip_smoke.phase_probes("cpu")
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "probes"
+    assert [c["n"] for c in line["checks"]] == [5, 33]
+    assert [c["geometry"] for c in line["checks"]] == ["warp", "cta"]
+    assert all(c["floor_bitwise_equal"] for c in line["checks"])
+    assert max_err == {"rank1_cholesky": 0.0, "traversal_floor": 0.0}
+    assert launches["rank1_cholesky"] == 2 + 3
+    assert launches["traversal_floor"] == 2 + 1
+    assert sum(launches.values()) == 2 + 3 + 2 + 1
+    assert line["launches"] == launches
+    assert line["chol_fused_probe"]["B"] == 8
+    assert "sweep_pct_of_ceiling" in line["traversal_floor_probe"]
+    assert [r["N"] for r in line["large_n"]["rows"]] == [32, 64]
+    assert line["large_n"]["all_pass"]
+    for name in probes.KERNELS:
+        entry = head[name]
+        assert (entry["batch"], entry["n"]) == (8, 16)
+        assert entry["ms"] > 0 and entry["plain_ms"] > 0
+        assert len(entry["turns_ms"]) == 2
+        assert (entry["bound_ms"], entry["bound_by"]) == (
+            chip_smoke.probe_bound(name, 8, 16))
+        assert list(others[name]) == ["4x5"]
+    assert head["rank1_cholesky"]["library_ms"] > 0
+    assert head["traversal_floor"]["library_ms"] is None

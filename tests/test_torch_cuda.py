@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the sweep in its four step schemes, both variants of the blocked
-Cholesky, and the RBF Gram; the first versions kept as yardsticks), and the
-campaign and the sequential driver on
+Cholesky, the RBF Gram, and the sweep's two loop-shape probes; the first
+versions kept as yardsticks), and the campaign and the sequential driver on
 the card against the same on the CPU.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  The file
@@ -22,7 +22,8 @@ from scamlgp_tpu_torch.benchmarking.torch_adapters import (
 from scamlgp_tpu_torch import testing as conformance
 from scamlgp_tpu_torch.bo import ScaMLGPBO
 from scamlgp_tpu_torch.bo.core import Objective
-from scamlgp_tpu_torch.ops import blocked_chol, gram, inverse_mll, sweep
+from scamlgp_tpu_torch.ops import blocked_chol, gram, inverse_mll, probes
+from scamlgp_tpu_torch.ops import sweep
 from scamlgp_tpu_torch.ops import kernels as K
 from scamlgp_tpu_torch.parallel.campaign import CampaignConfig, run_campaign
 from tests.torch_threads import one_thread  # noqa: F401
@@ -657,3 +658,64 @@ def test_graph_kernel_nodes_hold_each_captured_launch(cuda):
     inv_p, _ = sweep.sweep_inverse_reference(A)
     assert (inv - inv_p).abs().max().item() <= 1e-4 * \
         inv_p.abs().max().item()
+
+
+PROBE_NS = [1, 5, 8, 9, 16, 31, 32, 33, 40, 64, 65, 127, 128]
+
+
+def _symmetric_spd(rng, b, n):
+    A = _spd_batch(rng, b, n)
+    return 0.5 * (A + A.transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("n", PROBE_NS)
+def test_rank1_cholesky_kernel_matches_plain(cuda, n):
+    """The rank-1 Cholesky probe against its plain version (within 1e-5
+    max|L|: rsqrtf may round otherwise than torch.rsqrt) and the library
+    factor (rel 1e-4), on every register capacity and both paths, a batch
+    (37) that is no multiple of the matrices a CTA owns."""
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    before = probes.rank1_cholesky.launches
+    L = probes.rank1_cholesky(A)
+    torch.cuda.synchronize()
+    assert probes.rank1_cholesky.launches == before + 1
+    Lp = probes.rank1_cholesky_reference(A)
+    assert (L - Lp).abs().max().item() <= 1e-5 * Lp.abs().max().item()
+    ref = torch.linalg.cholesky(A)
+    assert (L - ref).abs().max().item() < 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("n", PROBE_NS)
+def test_traversal_floor_kernel_equals_plain_bit_for_bit(cuda, n):
+    """A multiply, then an add, rounded apart on both sides (no FMA)."""
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    before = probes.traversal_floor.launches
+    out = probes.traversal_floor(A)
+    torch.cuda.synchronize()
+    assert probes.traversal_floor.launches == before + 1
+    assert torch.equal(out, probes.traversal_floor_reference(A))
+
+
+def test_probe_kernel_geometry_is_select_s(cuda):
+    """The probes keep the select kernel's layout at every N."""
+    for n in range(1, 129):
+        want = sweep.launch_geometry(n)
+        got = probes.kernel_geometry(n)
+        assert got == {k: want[k] for k in got}, n
+
+
+@pytest.mark.parametrize("wrapper", [probes.rank1_cholesky,
+                                     probes.traversal_floor])
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda, wrapper):
+    before = probes.kernel_launches()
+    with pytest.raises(ValueError):
+        wrapper(torch.eye(130, device=cuda).expand(2, 130, 130).contiguous())
+    with pytest.raises(TypeError):
+        wrapper(torch.eye(4, device=cuda, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        wrapper(torch.eye(4, device=cuda)[None].transpose(1, 2)
+                .expand(2, 4, 4))
+    assert wrapper(torch.empty((0, 4, 4), device=cuda)).shape == (0, 4, 4)
+    assert probes.kernel_launches() == before

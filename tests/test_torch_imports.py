@@ -66,8 +66,11 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     the study unit, the checkpoints, the ablation driver, the Quadratic
     benchmark, the HMC, NUTS and ADVI samplers, and the experiment layer
     (its configuration modules, CLI, plotting, tabular benchmarks and
-    device adapters), the mesh and the ports of ``run_many_tasks.py`` and
-    ``bench_multihost.py`` are among the modules that it imports."""
+    device adapters), the mesh, the ports of ``run_many_tasks.py`` and
+    ``bench_multihost.py``, and the loop-shape probes and the large-N
+    checks (the ports of ``bench_chol_fused_probe.py``,
+    ``bench_vpu_ceiling.py``, ``validate_large_n.py`` and
+    ``validate_large_n_fit.py``) are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -108,7 +111,12 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.parallel.distributed",
             "scamlgp_tpu_torch.distributed_worker",
             "scamlgp_tpu_torch.many_tasks",
-            "scamlgp_tpu_torch.bench_multihost"} <= names
+            "scamlgp_tpu_torch.bench_multihost",
+            "scamlgp_tpu_torch.ops.probes",
+            "scamlgp_tpu_torch.bench_chol_fused_probe",
+            "scamlgp_tpu_torch.bench_traversal_floor",
+            "scamlgp_tpu_torch.validate_large_n",
+            "scamlgp_tpu_torch.validate_large_n_fit"} <= names
     configurations = {n.rsplit(".", 1)[1] for n in names if n.startswith(
         "scamlgp_tpu_torch.benchmarking.configurations.")}
     assert len(configurations - {"_shared", "styles"}) == 17
