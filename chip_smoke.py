@@ -39,20 +39,29 @@ Phases, each printing one JSON line with its own seconds:
    count in the kernels line is this phase's, every launch of the phase
    (``gram.run`` counts each, the timed ones included);
 3c. probes: the sweep's two loop-shape probes (``ops/probes.py``,
-   ``csrc/probe_kernels.cu``).  The rank-1 Cholesky kernel against its
-   plain version at (PROBE_CHECK_B, n, n), n in PROBE_CHECK_NS (the warp
-   and CTA paths), within TOL_PROBE_CHOL max|L| (``rsqrtf`` may round
-   otherwise than ``torch.rsqrt``), and against ``torch.linalg.cholesky``
-   (rel TOL_PROBE_LIBRARY); the traversal-floor kernel against its plain
-   version on the same batches, bit for bit (both round the multiply and
-   the add apart).  Then, with every launch count set to 0, the two probes'
-   entry points at their defaults (``bench_chol_fused_probe.run`` and
-   ``bench_traversal_floor.run`` at PROBE_SHAPE, PROBE_REPS chained
-   launches, each beside ``select``); each must launch its kernel.  Then
-   both kernels timed at PROBE_TIMED in turns with ``select`` and
-   ``torch.linalg.cholesky`` (each in the order given, then reversed),
-   beside their plain versions and bounds
-   (``profile_kernels.probe_bound``).  Then
+   ``csrc/probe_kernels.cu``) at (PROBE_CHECK_B, n, n), n in
+   PROBE_CHECK_NS (the warp path and the blocked one, ragged panels at
+   100 and 127).  The Cholesky kernel against its panel recurrence
+   (``blocked_cholesky_mirror``) and its plain version within
+   TOL_PROBE_CHOL max|L|, and against ``torch.linalg.cholesky`` (rel
+   TOL_PROBE_LIBRARY); the floor kernel against its FMA recurrence
+   (``traversal_floor_fma_reference``) within TOL_PROBE_FLOOR_ULPS, with
+   the share of elements that are not bit for bit, and within n ulps of
+   its unfused plain version (one tie a step); their first versions
+   (``PROBE_BASELINES``, ``csrc/baseline_kernels.cu``): the factor within
+   TOL_PROBE_CHOL of its plain version, the floor bit for bit, their
+   launch ``select``'s, and the new kernels' the one
+   ``probes.launch_geometry`` gives.  Then, with every launch count set
+   to 0, the two probes' entry points at their defaults
+   (``bench_chol_fused_probe.run`` and ``bench_traversal_floor.run`` at
+   PROBE_SHAPE, PROBE_REPS chained launches, each beside ``select``,
+   and each timed alone too); each must launch its kernel.  Then both
+   kernels at PROBE_TIMED on the entry points' batch
+   (``profile_kernels.probe_row``): held there to the same checks, and
+   timed beside their first versions in turns (old, new, new, old)
+   through the wrappers and alone (bare launches behind a device spin),
+   with ``select``, ``torch.linalg.cholesky``, their plain versions and
+   bounds (``profile_kernels.probe_bound``).  Then
    ``validate_large_n`` (BASELINE config 5) at LARGE_N_SIZES, d = 6, 64
    queries, whose every row, N = 2048 included, must pass;
 4. slices, each through ``run_campaign`` in float32 with
@@ -295,10 +304,14 @@ from scamlgp_tpu_torch.parallel.campaign import (
 from scamlgp_tpu_torch.parallel.mesh import Mesh, local_slots, make_mesh
 from scamlgp_tpu_torch.profile_kernels import (
     BASELINES,
+    PROBE_BASELINES,
+    baseline_probe_geometry,
     bound,
     gram_times,
     library_inverse,
     probe_bound,
+    probe_errors,
+    probe_row,
     time_ms,
 )
 from scamlgp_tpu_torch.utils.profiling import GLOBAL_TIMER
@@ -429,17 +442,21 @@ SHARD_NORM_RTOL = 1e-5
 # timed at PROBE_TIMED (B, N), PROBE_TIMED_REPS launches (the plain versions
 # PROBE_PLAIN_REPS); the large-N rows
 PROBE_CHECK_B = 256
-PROBE_CHECK_NS = (8, 32, 40, 128)
+PROBE_CHECK_NS = (8, 32, 40, 100, 127, 128)
 PROBE_SHAPE = (4096, 128)
 PROBE_REPS = 30
 PROBE_TIMED = ((4096, 128), (1024, 32))
 PROBE_TIMED_REPS = 20
 PROBE_PLAIN_REPS = 2
 LARGE_N_SIZES = (512, 1024, 2048)
-#: the rank-1 Cholesky against its plain version, in max|L|
+#: the Cholesky probe against its panel recurrence and its plain version,
+#: in max|L|: the kernel fuses each multiply-subtract and sums in its own
+#: order, so it is bit for bit with neither
 TOL_PROBE_CHOL = 1e-5
-#: the rank-1 Cholesky against torch.linalg.cholesky, relative
+#: the Cholesky probe against torch.linalg.cholesky, relative
 TOL_PROBE_LIBRARY = 1e-4
+#: the floor against its FMA recurrence, in ulps (expected: bit for bit)
+TOL_PROBE_FLOOR_ULPS = 1
 
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -1941,86 +1958,88 @@ def phase_gram():
     return {**timed[0], "max_abs_err": max_err}, launches
 
 
-def ulps_apart(a, b) -> int:
-    """The largest distance in float32 units in the last place between two
-    float32 tensors of one sign pattern."""
-    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
-               .abs().max().item())
+def check_probe_errors(row, where):
+    """The phase's checks on a row of ``probe_errors`` (either kernel's
+    keys, or both) for B matrices n x n, ``where`` naming the shape."""
+    n = row["n"]
+    if "chol_max_abs_err" in row:
+        scale = row["max_abs_l"]
+        for key in ("chol_max_abs_err", "chol_max_abs_err_mirror",
+                    "old_chol_max_abs_err"):
+            check(row[key] <= TOL_PROBE_CHOL * scale,
+                  f"probes {where}: {key} {row[key]} > {TOL_PROBE_CHOL} * "
+                  f"{scale}")
+        check(row["chol_rel_err_vs_library"] < TOL_PROBE_LIBRARY,
+              f"rank1_cholesky {where}: {row['chol_rel_err_vs_library']} "
+              "from torch.linalg.cholesky")
+        check(row["chol_upper_zero"],
+              f"rank1_cholesky {where}: the strict upper triangle is not 0")
+    if "floor_max_ulps_fma" in row:
+        check(row["floor_max_ulps_fma"] <= TOL_PROBE_FLOOR_ULPS,
+              f"traversal_floor {where}: {row['floor_max_ulps_fma']} ulps "
+              f"from its FMA recurrence ({row['floor_share_not_bitwise_fma']}"
+              " of the elements not bit for bit)")
+        # the unfused plain version rounds each step's product apart: one
+        # tie a step at most, the first step exact (its addend is 0)
+        check(row["floor_max_ulps_plain"] <= n,
+              f"traversal_floor {where}: {row['floor_max_ulps_plain']} ulps "
+              "from its plain version")
+        check(row["old_floor_bitwise_equal"],
+              f"the first traversal_floor {where}: not bit for bit with its "
+              "plain version")
 
 
-def probe_times(B, N, device):
-    """Both probe kernels at (B, N, N), in turns with ``select`` and the
-    library Cholesky (in this order, then reversed), beside their plain
-    versions and bounds (``probe_bound``); the kernels-line fields of
-    each."""
-    A = bench_chol_fused_probe.probe_batch(B, N, device)
-    calls = {"rank1_cholesky": lambda: probes.rank1_cholesky(A),
-             "traversal_floor": lambda: probes.traversal_floor(A),
-             "select": lambda: sweep.sweep_inverse(A),
-             "library_cholesky": lambda: torch.linalg.cholesky(A)}
-    turns = {k: [] for k in calls}
-    for k in [*calls, *reversed(calls)]:
-        turns[k].append(time_ms(calls[k], PROBE_TIMED_REPS))
-    ms = {k: sum(v) / len(v) for k, v in turns.items()}
-    plain = {"rank1_cholesky": probes.rank1_cholesky_reference,
-             "traversal_floor": probes.traversal_floor_reference}
-    out = {}
-    for name, ref in plain.items():
-        bound_ms, bound_by = probe_bound(name, B, N)
-        out[name] = dict(
-            batch=B, n=N, ms=ms[name], turns_ms=turns[name],
-            plain_ms=time_ms(lambda: ref(A), PROBE_PLAIN_REPS),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=(ms["library_cholesky"] if name == "rank1_cholesky"
-                        else None),
-            select_ms=ms["select"])
-    del A
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    return out
+def check_probes(A, n):
+    """The two probe kernels and their first versions on A (PROBE_CHECK_B,
+    n, n) against their plain versions and mirrors (``probe_errors``, the
+    phase's checks); returns the phase's row."""
+    out = {name: (getattr(probes, name)(A), PROBE_BASELINES[name](A))
+           for name in probes.KERNELS}
+    sync(A.device.type)
+    row = dict(n=n, batch=A.shape[0],
+               geometry=probes.launch_geometry("rank1_cholesky", A.shape[0],
+                                               n)["path"])
+    for name, (new, old) in out.items():
+        row.update(probe_errors(name, A, new, old))
+    check_probe_errors(row, f"n={n}")
+    return row
 
 
 def phase_probes(device="cuda"):
-    """The two probe kernels against their plain versions; the probes'
-    entry points with the launch counts from 0; their times; the large-N
-    rows.  Returns each kernel's largest float32 error, its timings at
-    PROBE_TIMED[0] and at the other shapes, and the entry points'
-    launches."""
+    """The two probe kernels and their first versions against their plain
+    versions and mirrors, and their launch geometry; the probes' entry
+    points with the launch counts from 0; their times beside their first
+    versions at PROBE_TIMED (``probe_row``), checked there as at the
+    check shapes; the large-N rows.  Returns each kernel's largest float32
+    error against its plain version, its timings at PROBE_TIMED[0] and at
+    the other shapes, and the entry points' launches."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(11)
+    err_key = {"rank1_cholesky": "chol_max_abs_err",
+               "traversal_floor": "floor_max_abs_err"}
     max_err = dict.fromkeys(probes.KERNELS, 0.0)
     checks = []
     for n in PROBE_CHECK_NS:
         A = spd_batch(rng, PROBE_CHECK_B, n)
         A = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), device=device)
-        L = probes.rank1_cholesky(A)
-        F = probes.traversal_floor(A)
-        sync(device)
-        Lp = probes.rank1_cholesky_reference(A)
-        Fp = probes.traversal_floor_reference(A)
-        lib = torch.linalg.cholesky(A)
-        err = (L - Lp).abs().max().item()
-        scale = Lp.abs().max().item()
-        rel_lib = (L - lib).abs().max().item() / lib.abs().max().item()
-        bitwise = bool(torch.equal(F, Fp))
-        row = dict(n=n, batch=PROBE_CHECK_B,
-                   geometry=sweep.launch_geometry(n)["path"],
-                   chol_max_abs_err=err, max_abs_l=scale,
-                   chol_rel_err_vs_library=rel_lib,
-                   floor_bitwise_equal=bitwise,
-                   floor_max_abs_err=(F - Fp).abs().max().item(),
-                   floor_max_ulps=ulps_apart(F, Fp))
+        row = check_probes(A, n)
         checks.append(row)
-        check(err <= TOL_PROBE_CHOL * scale,
-              f"rank1_cholesky n={n}: {err} > {TOL_PROBE_CHOL} * {scale} "
-              "from its plain version")
-        check(rel_lib < TOL_PROBE_LIBRARY,
-              f"rank1_cholesky n={n}: {rel_lib} from torch.linalg.cholesky")
-        check(bitwise, f"traversal_floor n={n}: not bit for bit with its "
-              f"plain version ({row['floor_max_ulps']} ulps)")
-        max_err["rank1_cholesky"] = max(max_err["rank1_cholesky"], err)
-        max_err["traversal_floor"] = max(max_err["traversal_floor"],
-                                         row["floor_max_abs_err"])
+        for name, key in err_key.items():
+            max_err[name] = max(max_err[name], row[key])
+    if device == "cuda":
+        # the built kernels' launches: the first versions select's, the new
+        # ones launch_geometry's
+        for n in range(1, probes.MAX_N + 1):
+            want = sweep.launch_geometry(n)
+            got = baseline_probe_geometry(n)
+            check(got == {k: want[k] for k in got},
+                  f"the first probe kernels' geometry at n={n}: {got}")
+            for name in probes.KERNELS:
+                for B in (PROBE_CHECK_B, *(b for b, _ in PROBE_TIMED)):
+                    want = probes.launch_geometry(name, B, n)
+                    got = probes.kernel_geometry(name, B, n)
+                    check(got == {k: want[k] for k in got},
+                          f"{name}'s geometry at ({B}, {n}): {got}")
 
     # the main path: the probes' entry points, with every count from 0
     reset_launches()
@@ -2033,14 +2052,28 @@ def phase_probes(device="cuda"):
         check(launches[name] > 0,
               f"probes: the entry points launched {name} no time")
     for ratio in (chol_line["chol_over_sweep"],
-                  floor_line["sweep_pct_of_ceiling"]):
+                  chol_line["chol_over_sweep_alone"],
+                  floor_line["sweep_pct_of_ceiling"],
+                  floor_line["sweep_pct_of_ceiling_alone"]):
         check(np.isfinite(ratio) and ratio > 0,
               f"probes: a probe's ratio is {ratio}")
 
+    # each kernel at the timed shapes, the entry points' batch: checked
+    # against its plain version and mirror there, and timed beside its
+    # first version
     timed = {name: {} for name in probes.KERNELS}
-    for shape in PROBE_TIMED:
-        for name, t in probe_times(*shape, device).items():
-            timed[name][f"{shape[0]}x{shape[1]}"] = t
+    for B, N in PROBE_TIMED:
+        A = bench_chol_fused_probe.probe_batch(B, N, device)
+        select_ms = time_ms(lambda: sweep.sweep_inverse(A), PROBE_TIMED_REPS)
+        for name in probes.KERNELS:
+            row = probe_row(name, A, select_ms, PROBE_TIMED_REPS,
+                            PROBE_PLAIN_REPS)
+            check_probe_errors(row, f"timed ({B}, {N})")
+            max_err[name] = max(max_err[name], row["max_abs_err"])
+            timed[name][f"{B}x{N}"] = row
+        del A
+        if device == "cuda":
+            torch.cuda.empty_cache()
 
     large_n = validate_large_n.run(LARGE_N_SIZES, 64, 6, device)
     for row in large_n["rows"]:
@@ -2219,10 +2252,12 @@ def main():
             "old_ms": head[name].get("old_ms"),
             # rbf_gram: its own time without the wrapper, the host's issue
             # time of a call, and the first kernel through its wrapper; the
-            # probes: select timed in turns with them at the same shape
+            # probes: select timed in turns with them at the same shape,
+            # and each alone beside its first version
             **{k: head[name][k] for k in ("ms_kernel", "host_ms",
                                           "old_call_ms", "rbf_eager_ms",
-                                          "select_ms")
+                                          "select_ms", "ms_alone",
+                                          "old_ms_alone")
                if k in head[name]},
             # the kernel's times at its other timed shapes (select at the
             # hm6 p128 meta-fit's and the bench's N = 128, global at the

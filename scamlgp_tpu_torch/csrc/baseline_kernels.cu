@@ -29,6 +29,23 @@
 //     -DGRAM_PROFILE every warp stamps clock64() at the end of each phase,
 //     as gram.cu's current kernel does: staging, norms, cross term, exp and
 //     store, and the waits at its barriers.
+//   baseline_rank1_cholesky_f32, baseline_traversal_floor_f32:
+//     probe_kernels.cu's first versions, in the select sweep kernel's
+//     layout (N <= 32: CAP = 8, 16 or 32 lanes a matrix, lane j column j in
+//     CAP registers, 128 / CAP matrices a CTA of 128 threads; N <= 128: a
+//     CTA of 16 x 16 threads a matrix, thread (ty, tx) an R x R register
+//     tile (R = 4 or 8) of rows ty + 16 r and columns tx + 16 c; one barrier
+//     a step).  The factor's step k: s = rsqrt(A[k][k]), c = A[:, k] s,
+//     r = A[k, :] s, the trailing block (i > k, j > k) loses c r (a
+//     multiply, then a subtract), the other elements take the update with a
+//     zero factor, column k from the diagonal down becomes c; its rows
+//     equal its columns bit for bit, as A is symmetric.  The floor's step:
+//     A = A * 0.9999999f + float(k) * 1e-12f over the whole block.  Each
+//     multiply, add and subtract is written __fmul_rn / __fadd_rn /
+//     __fsub_rn, so that none is contracted: the floor equals its plain
+//     version (ops/probes.py::traversal_floor_reference) bit for bit.
+//     baseline_probe_geometry reports their launch, select's
+//     (ops/sweep.py::launch_geometry).
 //
 // Built by scamlgp_tpu_torch/ops/cuda_build.py like the other sources;
 // scamlgp_tpu_torch/profile_kernels.py and chip_smoke.py time them.
@@ -853,6 +870,255 @@ int baseline_gram_launch(const void* x, const void* z, const void* ls,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The first probe kernels (probe_kernels.cu before its redesign)
+// ---------------------------------------------------------------------------
+
+namespace probe_v1 {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARP_PATH_THREADS = 128;
+constexpr int GRID = 16;
+constexpr int CTA_PATH_THREADS = GRID * GRID;
+constexpr float FLOOR_SCALE = 0.9999999f;
+constexpr float FLOOR_STEP = 1e-12f;
+
+template <int CAP>
+__global__ void __launch_bounds__(WARP_PATH_THREADS)
+    chol_warp_kernel(const float* __restrict__ a, float* __restrict__ l,
+                     long long batch, int n) {
+  const int j = threadIdx.x & (CAP - 1);
+  const long long m =
+      (static_cast<long long>(blockIdx.x) * WARP_PATH_THREADS + threadIdx.x) /
+      CAP;
+  // every lane takes part in the shuffles; only live lanes touch memory
+  const bool live = m < batch && j < n;
+  const size_t base = static_cast<size_t>(m) * n * n + j;
+
+  float v[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i)
+    v[i] = (live && i < n) ? a[base + static_cast<size_t>(i) * n] : 0.0f;
+
+#pragma unroll
+  for (int k = 0; k < CAP; ++k) {
+    if (k < n) {
+      const float d = __shfl_sync(FULL_MASK, v[k], k, CAP);
+      const float s = rsqrtf(d);
+      const bool pivot_column = j == k;
+      // row k's element of this lane's column, in the trailing block only
+      const float r = j > k ? __fmul_rn(v[k], s) : 0.0f;
+#pragma unroll
+      for (int i = k; i < CAP; ++i) {
+        const float c = __fmul_rn(__shfl_sync(FULL_MASK, v[i], k, CAP), s);
+        if (i == k)
+          v[i] = pivot_column ? c : v[i];
+        else
+          v[i] = pivot_column ? c : __fsub_rn(v[i], __fmul_rn(c, r));
+      }
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < CAP; ++i)
+      if (i < n) l[base + static_cast<size_t>(i) * n] = i >= j ? v[i] : 0.0f;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(CTA_PATH_THREADS, 2)
+    chol_cta_kernel(const float* __restrict__ a, float* __restrict__ l,
+                    int n) {
+  constexpr int CAP = GRID * R;
+  __shared__ float col_buf[2][CAP];
+  const int tx = threadIdx.x % GRID;
+  const int ty = threadIdx.x / GRID;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+
+  float v[R][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + GRID * r, j = tx + GRID * c;
+      v[r][c] = (i < n && j < n) ? a[base + static_cast<size_t>(i) * n + j]
+                                 : 0.0f;
+    }
+  if (tx == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) col_buf[0][ty + GRID * r] = v[r][0];
+  __syncthreads();
+
+#pragma unroll
+  for (int kc = 0; kc < R; ++kc) {
+    const int kt_end = min(GRID, n - GRID * kc);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int buf = kt & 1;
+      const int k = GRID * kc + kt;
+      const float s = rsqrtf(col_buf[buf][k]);
+      float c[R], cm[R], rm[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = ty + GRID * r;
+        c[r] = __fmul_rn(col_buf[buf][i], s);
+        cm[r] = i > k ? c[r] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int j = tx + GRID * q;
+        rm[q] = j > k ? __fmul_rn(col_buf[buf][j], s) : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          v[r][q] = __fsub_rn(v[r][q], __fmul_rn(cm[r], rm[q]));
+      if (tx == kt)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (ty + GRID * r >= k) v[r][kc] = c[r];
+
+      // column k + 1 as it stands after step k
+      float* col_next = col_buf[buf ^ 1];
+      if (kt + 1 < GRID) {
+        if (tx == kt + 1)
+#pragma unroll
+          for (int r = 0; r < R; ++r) col_next[ty + GRID * r] = v[r][kc];
+      } else if (kc + 1 < R) {
+        const int kn = kc + 1 < R ? kc + 1 : kc;  // a constant once unrolled
+        if (tx == 0)
+#pragma unroll
+          for (int r = 0; r < R; ++r) col_next[ty + GRID * r] = v[r][kn];
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + GRID * r, j = tx + GRID * c;
+      if (i < n && j < n)
+        l[base + static_cast<size_t>(i) * n + j] = i >= j ? v[r][c] : 0.0f;
+    }
+}
+
+__device__ __forceinline__ float floor_step(float v, float add) {
+  return __fadd_rn(__fmul_rn(v, FLOOR_SCALE), add);
+}
+
+template <int CAP>
+__global__ void __launch_bounds__(WARP_PATH_THREADS)
+    floor_warp_kernel(const float* __restrict__ a, float* __restrict__ out,
+                      long long batch, int n) {
+  const int j = threadIdx.x & (CAP - 1);
+  const long long m =
+      (static_cast<long long>(blockIdx.x) * WARP_PATH_THREADS + threadIdx.x) /
+      CAP;
+  const bool live = m < batch && j < n;
+  const size_t base = static_cast<size_t>(m) * n * n + j;
+
+  float v[CAP];
+#pragma unroll
+  for (int i = 0; i < CAP; ++i)
+    v[i] = (live && i < n) ? a[base + static_cast<size_t>(i) * n] : 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const float add = __fmul_rn(static_cast<float>(k), FLOOR_STEP);
+#pragma unroll
+    for (int i = 0; i < CAP; ++i) v[i] = floor_step(v[i], add);
+    __syncwarp();
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < CAP; ++i)
+      if (i < n) out[base + static_cast<size_t>(i) * n] = v[i];
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(CTA_PATH_THREADS, 2)
+    floor_cta_kernel(const float* __restrict__ a, float* __restrict__ out,
+                     int n) {
+  const int tx = threadIdx.x % GRID;
+  const int ty = threadIdx.x / GRID;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+
+  float v[R][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + GRID * r, j = tx + GRID * c;
+      v[r][c] = (i < n && j < n) ? a[base + static_cast<size_t>(i) * n + j]
+                                 : 0.0f;
+    }
+  for (int k = 0; k < n; ++k) {
+    const float add = __fmul_rn(static_cast<float>(k), FLOOR_STEP);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < R; ++c) v[r][c] = floor_step(v[r][c], add);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int i = ty + GRID * r, j = tx + GRID * c;
+      if (i < n && j < n) out[base + static_cast<size_t>(i) * n + j] = v[r][c];
+    }
+}
+
+// {capacity, threads a CTA, matrices a CTA} at n: the select sweep kernel's
+// (csrc/sweep_inverse.cu::geometry, ops/sweep.py::launch_geometry)
+void geometry(int n, int* out) {
+  const int cap = n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
+  const bool warp_path = cap <= 32;
+  out[0] = cap;
+  out[1] = warp_path ? WARP_PATH_THREADS : CTA_PATH_THREADS;
+  out[2] = warp_path ? WARP_PATH_THREADS / cap : 1;
+}
+
+template <bool CHOL>
+int launch(const void* a, void* out, long long batch, int n, void* stream) {
+  if (batch <= 0) return 0;
+  if (n < 1 || n > 128) return static_cast<int>(cudaErrorInvalidValue);
+  int g[3];
+  geometry(n, g);
+  const unsigned int ctas =
+      static_cast<unsigned int>((batch + g[2] - 1) / g[2]);
+  const float* A = static_cast<const float*>(a);
+  float* O = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g[0]) {
+    case 8:
+      if (CHOL) chol_warp_kernel<8><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      else floor_warp_kernel<8><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      break;
+    case 16:
+      if (CHOL) chol_warp_kernel<16><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      else floor_warp_kernel<16><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      break;
+    case 32:
+      if (CHOL) chol_warp_kernel<32><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      else floor_warp_kernel<32><<<ctas, g[1], 0, s>>>(A, O, batch, n);
+      break;
+    case 64:
+      if (CHOL) chol_cta_kernel<4><<<ctas, g[1], 0, s>>>(A, O, n);
+      else floor_cta_kernel<4><<<ctas, g[1], 0, s>>>(A, O, n);
+      break;
+    default:
+      if (CHOL) chol_cta_kernel<8><<<ctas, g[1], 0, s>>>(A, O, n);
+      else floor_cta_kernel<8><<<ctas, g[1], 0, s>>>(A, O, n);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace probe_v1
+
 }  // namespace
 
 extern "C" {
@@ -959,6 +1225,20 @@ int baseline_gram_profile_reset() {
       cudaMemcpyToSymbol(g_baseline_gram_cycles, zeros, sizeof(zeros)));
 }
 #endif
+
+int baseline_rank1_cholesky_f32(const void* a, void* l, long long batch,
+                                int n, void* stream) {
+  return probe_v1::launch<true>(a, l, batch, n, stream);
+}
+
+int baseline_traversal_floor_f32(const void* a, void* out, long long batch,
+                                 int n, void* stream) {
+  return probe_v1::launch<false>(a, out, batch, n, stream);
+}
+
+// Writes {capacity, threads a CTA, matrices a CTA} of the first probe
+// kernels' launch at n.
+void baseline_probe_geometry(int n, int* out) { probe_v1::geometry(n, out); }
 
 const char* baseline_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -44,10 +44,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: without FMA contraction: with it, their MLL on the campaign's nearly
 #: singular float32 systems lay 5x farther from float64 than their plain
 #: versions'; without it, it equals theirs (PERF.md, section 6).  The
-#: probes time the sweep's loop shape, so they are built as it is.
+#: probe kernels fuse each multiply-add they mean to through ``__fmaf_rn``
+#: and the first versions (``baseline_kernels``) none, through
+#: ``__fmul_rn`` / ``__fadd_rn``, so neither needs the flag.
 SOURCE_FLAGS = {"sweep_inverse": ("-fmad=false",),
-                "sweep_variants": ("-fmad=false",),
-                "probe_kernels": ("-fmad=false",)}
+                "sweep_variants": ("-fmad=false",)}
 #: library path -> nvcc's output, for each library built in this process
 BUILD_LOGS: dict = {}
 #: guards every kernel wrapper's launch counter (``count_launch``)

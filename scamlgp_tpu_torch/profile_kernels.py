@@ -2,8 +2,10 @@
 
     python -m scamlgp_tpu_torch.profile_kernels ptxas
     python -m scamlgp_tpu_torch.profile_kernels phases [--batch B] [--n N]
-        [--d D] [--variant smem|global|pair|blocked|gram] [--baseline]
+        [--d D] [--variant smem|global|pair|blocked|gram|rank1_cholesky]
+        [--baseline]
     python -m scamlgp_tpu_torch.profile_kernels times
+    python -m scamlgp_tpu_torch.profile_kernels probes [--repeat R]
     python -m scamlgp_tpu_torch.profile_kernels gram
 
 - ``ptxas``: builds every kernel source with ``-Xptxas -v`` and prints each
@@ -33,19 +35,27 @@
   phase (staging, norms, cross term, exp and store, the waits at its
   barriers, and the current kernel's waits for its own asynchronous
   copies; it sums the norms while it stages, so its ``norms`` is 0);
-  ``--baseline``: the first Gram kernel.
+  ``--baseline``: the first Gram kernel.  ``--variant rank1_cholesky``
+  (default shape (1024, 128, 128); ``--batch 4096`` is the probe's): the
+  Cholesky probe's blocked path built with ``-DPROBE_PROFILE``, every warp
+  stamping ``clock64()`` at the end of each phase (load, diagonal block,
+  panel solve, trailing update, the waits at its barriers, store).
 - ``times``: the ``select`` sweep kernel at the campaign's shapes beside
   its plain version, the library Cholesky inverse and the roofline bound;
-  the loop-shape probes (``ops/probes.py``: the rank-1 Cholesky and the
-  traversal floor) at (1024, 32), (1024, 128) and (4096, 128), each in
-  turns with ``select`` (probe, select, select, probe), beside its plain
-  version, its bound and (the Cholesky) ``torch.linalg.cholesky``;
+  the loop-shape probes (``ops/probes.py``: the Cholesky factor and the
+  traversal floor) at ``PROBE_TIMED``, each beside its first version
+  (``PROBE_BASELINES``) in turns (old, new, new, old), through the wrapper
+  and alone, with ``select``, its plain version and mirror, its bound and
+  (the factor) ``torch.linalg.cholesky`` (``probe_row``);
   the ``fused``, ``pair`` and ``blocked`` sweep kernels and the ``global``
   blocked-Cholesky kernel beside their first versions (``BASELINES``),
   timed in turns (old, new, new, old), with ``select``, ``smem`` and the
   library call at the same shapes; whether ``select``, ``fused`` and
   ``pair`` in float32 equal their plain versions bit for bit; and the RBF
   Gram kernel's rows of ``gram``.
+- ``probes``: the loop-shape probes' rows of ``times`` alone
+  (``probe_rows``), ``--repeat`` times over at each shape, so that the
+  turns' spread through the wrapper shows.
 - ``gram``: the RBF Gram kernel at ``GRAM_TIMED`` in float32 and at
   (4096, 4096, 2) in float64 (``gram_times`` with ``full``): the kernel
   alone beside its first version in turns, its outputs rotated over
@@ -53,8 +63,8 @@
   outputs; the profiler's device time of each kernel; the time through
   ``rbf_gram`` beside the first kernel through an equivalent wrapper.
 
-``time_ms``, ``library_inverse``, ``bound`` and ``gram_times`` are also
-``chip_smoke.py``'s.
+``time_ms``, ``library_inverse``, ``bound``, ``gram_times``, ``probe_row``
+and ``probe_errors`` are also ``chip_smoke.py``'s.
 
 Needs a CUDA device and nvcc; the card's name and power limit head the
 output.
@@ -85,6 +95,12 @@ SWEEP_PROFILE_FLAGS = ("-DSWEEP_PROFILE",)
 GRAM_PHASES = ("stage", "norms", "cross", "exp_store", "barrier",
                "copy_wait")
 GRAM_PROFILE_FLAGS = ("-DGRAM_PROFILE",)
+#: the blocked Cholesky probe's phases, in the order of its stamps' slots
+PROBE_PHASES = ("load", "diagonal", "panel_solve", "trailing_update",
+                "barrier", "store")
+PROBE_PROFILE_FLAGS = ("-DPROBE_PROFILE",)
+#: the probes' timed shapes (B, N), float32, first versions beside them
+PROBE_TIMED = ((1024, 32), (1024, 128), (4096, 128))
 #: the Gram kernel's timed shapes (n, m, d), float32, and the output
 #: buffers that its kernel-only times rotate over: four outputs of the
 #: smaller shape (16.8 MB each) overrun the H100's 50 MB L2
@@ -102,9 +118,9 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=None)
 def baseline_lib(extra: tuple = ()):
     """``csrc/baseline_kernels.cu``: the first versions of the ``global``
-    blocked-Cholesky kernel and the ``fused``, ``pair`` and ``blocked``
-    sweep kernels, float32, and of the RBF Gram kernel, float32 and
-    float64, kept as yardsticks."""
+    blocked-Cholesky kernel, the ``fused``, ``pair`` and ``blocked`` sweep
+    kernels and the two probes (``ops/probes.py``), float32, and of the RBF
+    Gram kernel, float32 and float64, kept as yardsticks."""
     lib = cuda_build.load("baseline_kernels", extra)
     lib.baseline_global_f32.argtypes = [_P] * 4 + [ctypes.c_longlong,
                                                    ctypes.c_int, _P]
@@ -117,6 +133,12 @@ def baseline_lib(extra: tuple = ()):
         fn = getattr(lib, name)
         fn.argtypes = [_P] * 5 + [ctypes.c_int] * 3 + [_P]
         fn.restype = ctypes.c_int
+    for name in ("rank1_cholesky", "traversal_floor"):
+        fn = getattr(lib, f"baseline_{name}_f32")
+        fn.argtypes = [_P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+        fn.restype = ctypes.c_int
+    lib.baseline_probe_geometry.argtypes = [ctypes.c_int, _P]
+    lib.baseline_probe_geometry.restype = None
     lib.baseline_error_string.argtypes = [ctypes.c_int]
     lib.baseline_error_string.restype = ctypes.c_char_p
     return lib
@@ -169,6 +191,44 @@ BASELINES = {
     "sweep_inverse_pair": lambda A: _baseline(A, "pair"),
     "sweep_inverse_blocked": lambda A: _baseline(A, "blocked"),
 }
+
+
+def baseline_probe(A, name, lib=None):
+    """The first version of the probe kernel ``name`` (``rank1_cholesky``
+    or ``traversal_floor``, in the ``select`` kernel's layout) on a float32
+    CUDA tensor (B, N, N), N <= 128, through a wrapper that checks and
+    launches as ``ops/probes.py``'s does, so that the two compare through
+    their wrappers too."""
+    lib = lib or baseline_lib()
+    if A.ndim != 3 or A.shape[-1] != A.shape[-2] or not A.is_contiguous():
+        raise ValueError(f"baseline {name} takes a contiguous (B, N, N)")
+    if A.dtype != torch.float32 or A.device.type != "cuda":
+        raise TypeError("the first probe kernels take float32 CUDA tensors")
+    if not 1 <= A.shape[-1] <= probes.MAX_N:
+        raise ValueError(f"baseline {name} takes N <= {probes.MAX_N}")
+    out = torch.empty_like(A)
+    with torch.cuda.device(A.device):
+        err = getattr(lib, f"baseline_{name}_f32")(
+            A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[-1],
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"baseline {name} launch failed: "
+                           + lib.baseline_error_string(err).decode())
+    return out
+
+
+def baseline_probe_geometry(n: int) -> dict:
+    """The first probe kernels' launch geometry at n (``select``'s), in the
+    keys of ``sweep.launch_geometry``."""
+    out = (ctypes.c_int * 3)()
+    baseline_lib().baseline_probe_geometry(n, ctypes.addressof(out))
+    return {"capacity": out[0], "threads": out[1],
+            "matrices_per_cta": out[2]}
+
+
+#: the probe kernels' names -> their first version, for timing beside them
+PROBE_BASELINES = {name: functools.partial(baseline_probe, name=name)
+                   for name in probes.KERNELS}
 
 
 def global_tile_transfers(nb: int, first: bool = False) -> int:
@@ -439,16 +499,127 @@ def bound(B, N, dtype):
 
 def probe_bound(name: str, B: int, N: int) -> tuple:
     """Least time in ms for the work of the probe kernel ``name``
-    (``ops/probes.py``) on B float32 N x N blocks, and what bounds it: one
-    read of A and one write of the output at the HBM rate, against the
-    operations at the float32 peak.  A Cholesky factor needs N^3 / 3
-    operations (N^3 / 6 multiply-subtracts, LAPACK potrf's count); the
-    floor does 2 N^3 (a multiply and an add an element a step)."""
-    t_bytes = 2 * B * N * N * 4 / HBM_BYTES_PER_S
+    (``ops/probes.py``) on B float32 N x N blocks, and what bounds it: the
+    bytes the function must move at the HBM rate, against the operations
+    at the float32 peak.  The factor reads the lower triangle of A (N (N +
+    1) / 2 elements: the factor of a symmetric matrix needs no more) and
+    writes the whole of L, its upper triangle zero; it needs N^3 / 3
+    operations (N^3 / 6 multiply-subtracts, LAPACK potrf's count).  The
+    floor reads and writes every element and does 2 N^3 operations (a
+    multiply and an add an element a step)."""
+    read = {"rank1_cholesky": N * (N + 1) // 2,
+            "traversal_floor": N * N}[name]
+    t_bytes = B * (read + N * N) * 4 / HBM_BYTES_PER_S
     ops = {"rank1_cholesky": N ** 3 / 3, "traversal_floor": 2 * N ** 3}[name]
     t_ops = B * ops / PEAK_OPS[torch.float32]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulps_apart(a, b) -> int:
+    """The largest distance in float32 units in the last place between two
+    float32 tensors of one sign pattern."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max().item())
+
+
+def ulps_of_larger(a, b, start) -> float:
+    """The largest |a - b| in units in the last place of the larger of
+    |start| and |b|, elementwise: the unit in which N steps of the floor
+    from ``start`` part the fused and the unfused recurrences by at most N.
+    Each step moves them at most one ulp of the step's value apart, and a
+    value of the recurrence never exceeds the larger of its start and its
+    end (it falls, or falls and then rises), where a plain count of ulps
+    would grow when a value falls below a power of two."""
+    big = torch.maximum(start.abs(), b.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    return ((a - b).abs() / ulp).max().item()
+
+
+def probe_errors(name, A, out, old) -> dict:
+    """How far the probe kernel ``name``'s output ``out`` on A lies from its
+    plain version and its mirror (``ops/probes.py``), and its first
+    version's ``old`` from the plain version.  The factor (keys ``chol_``):
+    max abs against both, max abs relative to ``torch.linalg.cholesky``,
+    whether its strict upper triangle is 0, and max|L| (``max_abs_l``, the
+    scale of its tolerance).  The floor (keys ``floor_``): ulps from its
+    FMA recurrence and the share of elements not bit for bit with it, ulps
+    from the unfused plain version (``ulps_of_larger``) and max abs, and
+    whether the first version equals the plain version bit for bit."""
+    plain = getattr(probes, f"{name}_reference")(A)
+    if name == "rank1_cholesky":
+        mirror = probes.blocked_cholesky_mirror(A)
+        lib = torch.linalg.cholesky(A)
+        return dict(
+            max_abs_l=plain.abs().max().item(),
+            chol_max_abs_err=(out - plain).abs().max().item(),
+            chol_max_abs_err_mirror=(out - mirror).abs().max().item(),
+            chol_rel_err_vs_library=((out - lib).abs().max().item()
+                                     / lib.abs().max().item()),
+            chol_upper_zero=bool(torch.equal(torch.triu(out, 1),
+                                             torch.zeros_like(out))),
+            old_chol_max_abs_err=(old - plain).abs().max().item())
+    fma = probes.traversal_floor_fma_reference(A)
+    return dict(
+        floor_max_ulps_fma=ulps_apart(out, fma),
+        floor_share_not_bitwise_fma=(out != fma).double().mean().item(),
+        floor_max_ulps_plain=ulps_of_larger(out, plain, A),
+        floor_max_abs_err=(out - plain).abs().max().item(),
+        old_floor_bitwise_equal=bool(torch.equal(old, plain)))
+
+
+def probe_row(name, A, select_ms, reps=20, plain_reps=2):
+    """The probe kernel ``name`` at A's shape beside its first version
+    (``PROBE_BASELINES``), in turns (old, new, new, old) through the
+    wrapper (``ms``, ``old_ms``) and alone (``ms_alone``, ``old_ms_alone``:
+    bare launches queued behind a device spin, ``device_ms``), ``reps``
+    launches a turn; its errors at this shape (``probe_errors``, and
+    ``max_abs_err``: against the plain version), the plain version's time
+    (``plain_reps`` calls), the library call's (the factor: ``torch.
+    linalg.cholesky``) and the bound."""
+    B, N, _ = A.shape
+    kernel = getattr(probes, name)
+    old = PROBE_BASELINES[name]
+    plain = getattr(probes, f"{name}_reference")
+    out, out_old = kernel(A), old(A)
+    if A.is_cuda:
+        torch.cuda.synchronize()
+    errors = probe_errors(name, A, out, out_old)
+    del out, out_old
+    calls = (lambda: old(A), lambda: kernel(A), lambda: kernel(A),
+             lambda: old(A))
+    t = [time_ms(f, reps) for f in calls]
+    alone = [device_ms(lambda i, f=f: f(), reps) for f in calls]
+    bound_ms, bound_by = probe_bound(name, B, N)
+    return dict(
+        kernel=name, batch=B, n=N, **errors,
+        max_abs_err=errors[{"rank1_cholesky": "chol_max_abs_err",
+                            "traversal_floor": "floor_max_abs_err"}[name]],
+        ms=(t[1] + t[2]) / 2, old_ms=(t[0] + t[3]) / 2, turns_ms=t,
+        ms_alone=(alone[1] + alone[2]) / 2,
+        old_ms_alone=(alone[0] + alone[3]) / 2, turns_alone_ms=alone,
+        select_ms=select_ms, plain_ms=time_ms(lambda: plain(A), plain_reps),
+        library_ms=(time_ms(lambda: torch.linalg.cholesky(A), reps)
+                    if name == "rank1_cholesky" else None),
+        geometry=probes.launch_geometry(name, B, N),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def probe_rows(repeat: int = 1) -> list:
+    """``probe_row`` of both probe kernels at each of ``PROBE_TIMED``,
+    ``repeat`` times over (the rows' ``repeat``), ``select`` timed at the
+    shape before each repeat."""
+    rows = []
+    for B, N in PROBE_TIMED:
+        A = spd(B, N)
+        A = 0.5 * (A + A.transpose(1, 2))
+        for r in range(repeat):
+            select_ms = time_ms(lambda: sweep.sweep_inverse(A, "select"), 20)
+            for name in probes.KERNELS:
+                rows.append(dict(probe_row(name, A, select_ms), repeat=r))
+        del A
+        torch.cuda.empty_cache()
+    return rows
 
 
 def cmd_ptxas():
@@ -508,6 +679,50 @@ def cmd_gram_phases(n: int, d: int, baseline: bool = False):
               torch.cuda.get_device_properties(0).multi_processor_count),
           ms=device_ms(default, 50), ms_profiling_build=device_ms(launch, 50),
           profiling_build_equal=bool(torch.equal(out, ref)))
+
+
+def cmd_probe_phases(batch: int, n: int):
+    """One launch of the blocked Cholesky probe (``rank1_cholesky``, its
+    blocked path: 32 < n <= 128) at (batch, n, n) float32, built with
+    ``-DPROBE_PROFILE``: the mean cycles a warp spends in each phase (load,
+    diagonal block, panel solve, trailing update, the waits at its
+    barriers, store), with the kernel's time alone in the default build and
+    in the profiling build."""
+    A = spd(batch, n)
+    A = 0.5 * (A + A.transpose(1, 2))
+    lib = cuda_build.load("probe_kernels", PROBE_PROFILE_FLAGS)
+    read, reset = lib.probe_profile_read, lib.probe_profile_reset
+    read.argtypes, reset.argtypes = [ctypes.c_void_p], []
+    read.restype = reset.restype = ctypes.c_int
+
+    def launch(i=0):
+        return probes._launch("rank1_cholesky", A, PROBE_PROFILE_FLAGS)
+
+    launch()
+    torch.cuda.synchronize()
+    if reset():
+        raise RuntimeError("phase profile reset failed")
+    L = launch()
+    torch.cuda.synchronize()
+    totals = (ctypes.c_ulonglong * (len(PROBE_PHASES) + 1))()
+    if read(ctypes.addressof(totals)):
+        raise RuntimeError("phase profile read failed")
+    count = totals[len(PROBE_PHASES)]
+    if count == 0:
+        raise RuntimeError(f"rank1_cholesky stamped nothing at n={n} (its "
+                           "warp path, n <= 32, has no stamps)")
+    cycles = {p: totals[i] / count for i, p in enumerate(PROBE_PHASES)}
+    whole = sum(cycles.values())
+    ref = probes.rank1_cholesky(A)
+    torch.cuda.synchronize()
+    _emit(probe="phases", kernel="rank1_cholesky", batch=batch, n=n,
+          dtype="float32", warps=count, cycles_per_warp=cycles,
+          share={p: c / whole for p, c in cycles.items()},
+          cycles_per_warp_total=whole,
+          geometry=probes.launch_geometry("rank1_cholesky", batch, n),
+          ms=device_ms(lambda i: probes.rank1_cholesky(A), 20),
+          ms_profiling_build=device_ms(launch, 20),
+          profiling_build_equal=bool(torch.equal(L, ref)))
 
 
 def cmd_phases(batch: int, n: int, variant: str, baseline: bool = False):
@@ -608,31 +823,10 @@ def cmd_times():
             plain_ms=time_ms(lambda: sweep.sweep_inverse_reference(A), 2),
             library_ms=time_ms(lambda: library_inverse(A), 10),
             bound_ms=bound(B, N, A.dtype)[0]))
-    # the loop-shape probes beside select, in turns (probe, select, select,
-    # probe), with their plain versions, the library Cholesky and bounds
-    for B, N in ((1024, 32), (1024, 128), (4096, 128)):
-        A = spd(B, N)
-        A = 0.5 * (A + A.transpose(1, 2))
-        for name in probes.KERNELS:
-            kernel = getattr(probes, name)
-            plain = getattr(probes, f"{name}_reference")
-            out_k, out_p = kernel(A), plain(A)
-            torch.cuda.synchronize()
-            probe = lambda k=kernel: k(A)  # noqa: E731
-            select = lambda: sweep.sweep_inverse(A, "select")  # noqa: E731
-            t = [time_ms(f, 20) for f in (probe, select, select, probe)]
-            bound_ms, bound_by = probe_bound(name, B, N)
-            rows.append(dict(
-                kernel=name, batch=B, n=N,
-                bitwise_equal_plain=bool(torch.equal(out_k, out_p)),
-                max_abs_err=(out_k - out_p).abs().max().item(),
-                ms=(t[0] + t[3]) / 2, select_ms=(t[1] + t[2]) / 2,
-                turns_ms=t, plain_ms=time_ms(lambda p=plain: p(A), 2),
-                library_ms=(time_ms(lambda: torch.linalg.cholesky(A), 10)
-                            if name == "rank1_cholesky" else None),
-                bound_ms=bound_ms, bound_by=bound_by))
-        del A, out_k, out_p
-        torch.cuda.empty_cache()
+    # the loop-shape probes beside their first versions, in turns (old, new,
+    # new, old), through the wrappers and alone (``device_ms``), with select,
+    # the plain versions and mirrors, the library Cholesky and the bounds
+    rows += probe_rows()
     # the redesigned kernels beside their first versions, in turns (old,
     # new, new, old), with select and the library call at the same shapes
     for B, N in ((1024, 128), (4096, 128), (1024, 32)):
@@ -696,15 +890,18 @@ def cmd_gram():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("ptxas", "phases", "times", "gram"))
+    ap.add_argument("probe",
+                    choices=("ptxas", "phases", "times", "probes", "gram"))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--n", type=int, default=None,
-                    help="default 256; 128 for pair and blocked; 4096 "
-                    "(n = m) for gram")
+                    help="default 256; 128 for pair, blocked and "
+                    "rank1_cholesky; 4096 (n = m) for gram")
     ap.add_argument("--d", type=int, default=2, help="gram's features")
+    ap.add_argument("--repeat", type=int, default=3,
+                    help="probes: the rows' repeats at each shape")
     ap.add_argument("--variant",
                     choices=(blocked_chol.VARIANTS + tuple(SWEEP_PHASES)
-                             + ("gram",)),
+                             + ("gram", "rank1_cholesky")),
                     default="smem")
     ap.add_argument("--baseline", action="store_true",
                     help="phases of the variant's first kernel (global, "
@@ -718,6 +915,8 @@ def main(argv=None):
           nvidia_smi=_card(), torch=torch.__version__, cuda=torch.version.cuda)
     if args.probe == "ptxas":
         cmd_ptxas()
+    elif args.probe == "phases" and args.variant == "rank1_cholesky":
+        cmd_probe_phases(args.batch, args.n or 128)
     elif args.probe == "phases" and args.variant == "gram":
         cmd_gram_phases(args.n or 4096, args.d, args.baseline)
     elif args.probe == "phases":
@@ -725,6 +924,9 @@ def main(argv=None):
         cmd_phases(args.batch, n, args.variant, args.baseline)
     elif args.probe == "gram":
         cmd_gram()
+    elif args.probe == "probes":
+        for row in probe_rows(args.repeat):
+            _emit(probe="times", dtype="float32", **row)
     else:
         cmd_times()
     return 0

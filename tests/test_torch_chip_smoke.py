@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
+from scamlgp_tpu_torch import profile_kernels
 from scamlgp_tpu_torch.benchmarking import local_runner
 from scamlgp_tpu_torch.models import gp
 from scamlgp_tpu_torch.ops import blocked_chol, cuda_build, linalg, probes
@@ -415,13 +416,15 @@ def test_sharded_phase_on_the_cpu(monkeypatch, tmp_path, capsys):
 
 
 def test_probes_phase_on_the_cpu(monkeypatch, capsys):
-    """The probes phase at a CPU size, counting wrappers around the plain
-    versions standing in for the kernels: the checks pass, the entry
-    points launch each probe as often as they call it (the factor once to
-    check it, then a warm-up and reps + 1 chained; the floor a warm-up and
-    reps), no other kernel, and every large-N row passes; the timings
-    (the card's event timer replaced by the host clock) carry the kernels
-    line's fields at both shapes."""
+    """The probes phase at a CPU size, counting wrappers around the
+    kernels' mirrors (their recurrences) standing in for the kernels and
+    the plain versions for their first versions: the checks pass, the
+    entry points launch each probe as often as they call it (the factor
+    once to check it, then a warm-up, reps + 1 chained and reps alone; the
+    floor a warm-up, reps chained and reps alone), no other kernel, and
+    every large-N row passes; the timed rows (the card's event timer and
+    device spin replaced by the host clock) carry the kernels line's
+    fields and the checks' errors at both shapes."""
     def counting(plain):
         def counted(A):
             cuda_build.count_launch(vars(counted), "launches")
@@ -430,9 +433,13 @@ def test_probes_phase_on_the_cpu(monkeypatch, capsys):
         return counted
 
     monkeypatch.setattr(probes, "rank1_cholesky",
-                        counting(probes.rank1_cholesky_reference))
+                        counting(probes.blocked_cholesky_mirror))
     monkeypatch.setattr(probes, "traversal_floor",
-                        counting(probes.traversal_floor_reference))
+                        counting(probes.traversal_floor_fma_reference))
+    firsts = {"rank1_cholesky": probes.rank1_cholesky_reference,
+              "traversal_floor": probes.traversal_floor_reference}
+    monkeypatch.setattr(chip_smoke, "PROBE_BASELINES", firsts)
+    monkeypatch.setattr(profile_kernels, "PROBE_BASELINES", firsts)
 
     def host_ms(fn, reps):
         # the card's event timer, on the host clock
@@ -442,6 +449,9 @@ def test_probes_phase_on_the_cpu(monkeypatch, capsys):
         return (time.perf_counter() - t0) * 1e3 / reps
 
     monkeypatch.setattr(chip_smoke, "time_ms", host_ms)
+    monkeypatch.setattr(profile_kernels, "time_ms", host_ms)
+    monkeypatch.setattr(profile_kernels, "device_ms",
+                        lambda launch, reps: host_ms(lambda: launch(0), reps))
     for name, value in (("PROBE_CHECK_B", 4), ("PROBE_CHECK_NS", (5, 33)),
                         ("PROBE_SHAPE", (8, 16)), ("PROBE_REPS", 2),
                         ("PROBE_TIMED", ((8, 16), (4, 5))),
@@ -452,24 +462,47 @@ def test_probes_phase_on_the_cpu(monkeypatch, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["phase"] == "probes"
     assert [c["n"] for c in line["checks"]] == [5, 33]
-    assert [c["geometry"] for c in line["checks"]] == ["warp", "cta"]
-    assert all(c["floor_bitwise_equal"] for c in line["checks"])
-    assert max_err == {"rank1_cholesky": 0.0, "traversal_floor": 0.0}
-    assert launches["rank1_cholesky"] == 2 + 3
-    assert launches["traversal_floor"] == 2 + 1
-    assert sum(launches.values()) == 2 + 3 + 2 + 1
+    assert [c["geometry"] for c in line["checks"]] == ["warp", "blocked"]
+    for c in line["checks"]:
+        assert c["old_floor_bitwise_equal"] and c["chol_upper_zero"]
+        assert c["floor_max_ulps_fma"] == 0
+        assert c["floor_share_not_bitwise_fma"] == 0.0
+        assert c["old_chol_max_abs_err"] == 0.0
+        assert c["chol_max_abs_err"] <= 1e-5 * c["max_abs_l"]
+        assert 0 <= c["floor_max_ulps_plain"] <= c["n"]
+    assert max_err == {
+        "rank1_cholesky": max(c["chol_max_abs_err"] for c in line["checks"]),
+        "traversal_floor": max(c["floor_max_abs_err"]
+                               for c in line["checks"])}
+    assert launches["rank1_cholesky"] == 2 + 3 + 2
+    assert launches["traversal_floor"] == 1 + 2 + 2
+    assert sum(launches.values()) == 2 + 3 + 2 + 1 + 2 + 2
     assert line["launches"] == launches
-    assert line["chol_fused_probe"]["B"] == 8
-    assert "sweep_pct_of_ceiling" in line["traversal_floor_probe"]
+    chol_line = line["chol_fused_probe"]
+    assert chol_line["B"] == 8 and chol_line["chol_over_sweep_alone"] > 0
+    assert set(chol_line["allocator_counts"]) == {"chol", "sweep", "library",
+                                                  "chain"}
+    assert line["traversal_floor_probe"]["sweep_pct_of_ceiling_alone"] > 0
     assert [r["N"] for r in line["large_n"]["rows"]] == [32, 64]
     assert line["large_n"]["all_pass"]
     for name in probes.KERNELS:
         entry = head[name]
         assert (entry["batch"], entry["n"]) == (8, 16)
         assert entry["ms"] > 0 and entry["plain_ms"] > 0
-        assert len(entry["turns_ms"]) == 2
+        assert entry["old_ms"] > 0 and entry["ms_alone"] > 0
+        assert entry["old_ms_alone"] > 0
+        assert len(entry["turns_ms"]) == len(entry["turns_alone_ms"]) == 4
         assert (entry["bound_ms"], entry["bound_by"]) == (
             chip_smoke.probe_bound(name, 8, 16))
         assert list(others[name]) == ["4x5"]
+        for row in (entry, others[name]["4x5"]):
+            assert row["max_abs_err"] <= max_err[name]
+    for row in (head["rank1_cholesky"], others["rank1_cholesky"]["4x5"]):
+        assert row["chol_upper_zero"] and row["old_chol_max_abs_err"] == 0.0
+        assert row["chol_max_abs_err_mirror"] == 0.0
+        assert row["chol_rel_err_vs_library"] < 1e-4
+    for row in (head["traversal_floor"], others["traversal_floor"]["4x5"]):
+        assert row["floor_max_ulps_fma"] == 0 and row["old_floor_bitwise_equal"]
+        assert 0 <= row["floor_max_ulps_plain"] <= row["n"]
     assert head["rank1_cholesky"]["library_ms"] > 0
     assert head["traversal_floor"]["library_ms"] is None

@@ -660,7 +660,7 @@ def test_graph_kernel_nodes_hold_each_captured_launch(cuda):
         inv_p.abs().max().item()
 
 
-PROBE_NS = [1, 5, 8, 9, 16, 31, 32, 33, 40, 64, 65, 127, 128]
+PROBE_NS = [1, 5, 8, 9, 16, 31, 32, 33, 40, 64, 65, 96, 100, 127, 128]
 
 
 def _symmetric_spd(rng, b, n):
@@ -670,10 +670,13 @@ def _symmetric_spd(rng, b, n):
 
 @pytest.mark.parametrize("n", PROBE_NS)
 def test_rank1_cholesky_kernel_matches_plain(cuda, n):
-    """The rank-1 Cholesky probe against its plain version (within 1e-5
-    max|L|: rsqrtf may round otherwise than torch.rsqrt) and the library
-    factor (rel 1e-4), on every register capacity and both paths, a batch
-    (37) that is no multiple of the matrices a CTA owns."""
+    """The Cholesky probe against its panel recurrence
+    (``blocked_cholesky_mirror``) and its plain version, within 1e-5
+    max|L| each (the kernel fuses each multiply-subtract, the two do not;
+    ``rsqrtf`` may round otherwise than ``torch.rsqrt``), and the library
+    factor (rel 1e-4), on both paths, every warp capacity, ragged panels
+    (N % 32 != 0) and N % 4 != 0 (4-byte copies), a batch (37) that is no
+    multiple of the matrices a CTA owns; the strict upper triangle zero."""
     A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
                         device=cuda)
     before = probes.rank1_cholesky.launches
@@ -681,29 +684,124 @@ def test_rank1_cholesky_kernel_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert probes.rank1_cholesky.launches == before + 1
     Lp = probes.rank1_cholesky_reference(A)
-    assert (L - Lp).abs().max().item() <= 1e-5 * Lp.abs().max().item()
+    scale = Lp.abs().max().item()
+    assert (L - Lp).abs().max().item() <= 1e-5 * scale
+    assert (L - probes.blocked_cholesky_mirror(A)).abs().max().item() <= \
+        1e-5 * scale
     ref = torch.linalg.cholesky(A)
     assert (L - ref).abs().max().item() < 1e-4 * ref.abs().max().item()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+
+
+@pytest.mark.parametrize("n", [40, 128])
+def test_rank1_cholesky_kernel_on_a_misaligned_view(cuda, n):
+    """A contiguous view 4 bytes past an aligned start takes the 4-byte
+    copies and stores, and gives the aligned launch's bits; a non-positive
+    pivot gives NaN in its matrix only."""
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 5, n),
+                        device=cuda)
+    buf = torch.empty(A.numel() + 1, device=cuda)
+    buf[1:] = A.reshape(-1)
+    view = buf[1:].view(A.shape)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(probes.rank1_cholesky(view), probes.rank1_cholesky(A))
+    A[2, 3, 3] = -1.0
+    L = probes.rank1_cholesky(A)
+    assert torch.isnan(L[2]).any()
+    assert torch.isfinite(L[[0, 1, 3, 4]]).all()
 
 
 @pytest.mark.parametrize("n", PROBE_NS)
-def test_traversal_floor_kernel_equals_plain_bit_for_bit(cuda, n):
-    """A multiply, then an add, rounded apart on both sides (no FMA)."""
+def test_traversal_floor_kernel_matches_its_fma_recurrence(cuda, n):
+    """One FMA an element a step: bit for bit the float32 FMA recurrence
+    (``traversal_floor_fma_reference``), 16-byte runs and the scalar tail
+    (37 n^2 is odd at odd n), and on a view 4 bytes past an aligned start
+    (single elements); within n ulps of the unfused plain version, which
+    rounds each step's product apart (1 ulp a step, the first step exact)."""
     A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
                         device=cuda)
     before = probes.traversal_floor.launches
     out = probes.traversal_floor(A)
     torch.cuda.synchronize()
     assert probes.traversal_floor.launches == before + 1
+    assert torch.equal(out, probes.traversal_floor_fma_reference(A))
+    buf = torch.empty(A.numel() + 1, device=cuda)
+    buf[1:] = A.reshape(-1)
+    assert torch.equal(probes.traversal_floor(buf[1:].view(A.shape)), out)
+    plain = probes.traversal_floor_reference(A)
+    big = torch.maximum(A.abs(), plain.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    assert ((out - plain).abs() / ulp).max().item() <= n
+
+
+@pytest.mark.parametrize("n", PROBE_NS)
+def test_traversal_floor_kernel_equals_plain_bit_for_bit(cuda, n):
+    """The first floor kernel (``baseline_kernels.cu``): a multiply, then an
+    add, rounded apart on both sides (__fmul_rn, __fadd_rn)."""
+    from scamlgp_tpu_torch.profile_kernels import PROBE_BASELINES
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    out = PROBE_BASELINES["traversal_floor"](A)
+    torch.cuda.synchronize()
     assert torch.equal(out, probes.traversal_floor_reference(A))
 
 
+@pytest.mark.parametrize("n", [8, 32, 40, 128])
+def test_baseline_rank1_cholesky_matches_plain(cuda, n):
+    """The first Cholesky probe kernel, kept to be timed beside the new
+    one, still computes its plain version's factor (within 1e-5 max|L|)."""
+    from scamlgp_tpu_torch.profile_kernels import PROBE_BASELINES
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 37, n),
+                        device=cuda)
+    L = PROBE_BASELINES["rank1_cholesky"](A)
+    torch.cuda.synchronize()
+    Lp = probes.rank1_cholesky_reference(A)
+    assert (L - Lp).abs().max().item() <= 1e-5 * Lp.abs().max().item()
+
+
 def test_probe_kernel_geometry_is_select_s(cuda):
-    """The probes keep the select kernel's layout at every N."""
+    """The first probe kernels keep the select kernel's layout at every N."""
+    from scamlgp_tpu_torch.profile_kernels import baseline_probe_geometry
     for n in range(1, 129):
         want = sweep.launch_geometry(n)
-        got = probes.kernel_geometry(n)
+        got = baseline_probe_geometry(n)
         assert got == {k: want[k] for k in got}, n
+
+
+def test_probe_kernel_geometry_is_the_wrappers(cuda):
+    """The built probe kernels report ``probes.launch_geometry``'s launch."""
+    for name in probes.KERNELS:
+        for B in (1, 37, 4096):
+            for n in range(1, 129):
+                want = probes.launch_geometry(name, B, n)
+                got = probes.kernel_geometry(name, B, n)
+                assert got == {k: want[k] for k in got}, (name, B, n)
+
+
+@pytest.mark.parametrize("n", [33, 128])
+def test_probe_profiling_build_computes_the_same(cuda, n):
+    """The Cholesky probe built with -DPROBE_PROFILE gives the default
+    build's bits and stamps every warp of every CTA."""
+    import ctypes
+
+    from scamlgp_tpu_torch.ops import cuda_build
+    from scamlgp_tpu_torch.profile_kernels import (PROBE_PHASES,
+                                                   PROBE_PROFILE_FLAGS)
+    A = torch.as_tensor(_symmetric_spd(np.random.default_rng(n), 9, n),
+                        device=cuda)
+    lib = cuda_build.load("probe_kernels", PROBE_PROFILE_FLAGS)
+    lib.probe_profile_reset.restype = ctypes.c_int
+    lib.probe_profile_read.argtypes = [ctypes.c_void_p]
+    lib.probe_profile_read.restype = ctypes.c_int
+    assert lib.probe_profile_reset() == 0
+    L = probes._launch("rank1_cholesky", A, PROBE_PROFILE_FLAGS)
+    torch.cuda.synchronize()
+    totals = (ctypes.c_ulonglong * (len(PROBE_PHASES) + 1))()
+    assert lib.probe_profile_read(ctypes.addressof(totals)) == 0
+    warps = probes.launch_geometry("rank1_cholesky", 9, n)["threads"] // 32
+    assert totals[len(PROBE_PHASES)] == 9 * warps
+    assert all(totals[i] > 0 for i in range(len(PROBE_PHASES)))
+    assert torch.equal(L, probes.rank1_cholesky(A))
 
 
 @pytest.mark.parametrize("wrapper", [probes.rank1_cholesky,

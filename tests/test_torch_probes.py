@@ -19,6 +19,16 @@ while they run and restores it.
   plain version equals the recurrence with a rounded multiply, then a
   rounded add, bit for bit; from every state of the trajectory one step
   of the two lies within 1 ulp; after the 16 steps they lie within 16.
+- The kernels' mirrors: ``blocked_cholesky_mirror`` (the factor's panel
+  recurrence) in float64 equals ``numpy.linalg.cholesky`` and the rank-1
+  plain version to 1e-12 at N across the panel boundaries, ragged panels
+  included, its strict upper triangle exactly 0, and lies within 1e-5
+  max|L| of the Pallas body in float32; ``traversal_floor_fma_reference``
+  (one rounding a step) gives the Pallas body's bits, within N ulps of
+  the unfused plain version, and its single rounding is exact where a
+  plain float64 sum would make a float32 tie.
+- The launch rule ``probes.launch_geometry`` (the card tests hold the
+  built kernels to it).
 - Both probe modules' ``main`` at a tiny size on the CPU print the JAX
   scripts' keys.
 
@@ -162,12 +172,13 @@ def test_wrappers_run_the_plain_version_on_the_cpu(batch, wrapper, plain):
 
 
 @pytest.mark.parametrize("name,ms,by", [
-    ("rank1_cholesky", 0.1602, "bytes"),
+    ("rank1_cholesky", 0.1205, "bytes"),
     ("traversal_floor", 0.2564, "operations")])
 def test_bounds_at_the_probes_default_shape(name, ms, by):
-    """(4096, 128, 128): 537 MB moved in 0.160 ms at 3.35 TB/s; the factor's
-    N^3 / 3 operations take 0.021 ms at 67 TFLOP/s, the floor's 2 N^3
-    0.256 ms."""
+    """(4096, 128, 128): the factor reads the lower triangle and writes the
+    whole of L, 404 MB in 0.1205 ms at 3.35 TB/s, and its N^3 / 3
+    operations take 0.021 ms at 67 TFLOP/s; the floor moves 537 MB in
+    0.160 ms, and its 2 N^3 operations take 0.256 ms."""
     got, bound_by = probe_bound(name, 4096, 128)
     assert bound_by == by and got == pytest.approx(ms, rel=1e-3)
 
@@ -196,6 +207,127 @@ def test_floor_probe_main_on_the_cpu():
             "sweep_pct_of_ceiling"}
     assert keys <= set(out)
     assert "VMEM" not in out["floor_unit"]
-    assert "16 x 16 threads" in out["floor_unit"]
+    assert "32 independent chains" in out["floor_unit"]
+    assert "no barrier" in out["floor_unit"]
+    assert out["geometry"] == probes.launch_geometry("traversal_floor", 8, 40)
     assert out["sweep_traversal_equiv"] == pytest.approx(
         out["sweep_ms_per_batch"] / out["floor_ms_per_batch"])
+
+
+MIRROR_NS = [8, 32, 33, 64, 100, 127, 128]
+
+
+@pytest.mark.parametrize("n", MIRROR_NS)
+def test_blocked_cholesky_mirror_f64_matches_numpy_and_rank1(n):
+    """The panel recurrence is a Cholesky factor: in float64 it equals
+    ``numpy.linalg.cholesky`` and the rank-1 plain version to 1e-12 of
+    max|L|, full and ragged last panels alike, the strict upper triangle
+    exactly 0."""
+    A = spd(np.random.default_rng(100 + n), 3, n, np.float64)
+    L = probes.blocked_cholesky_mirror(torch.as_tensor(A)).numpy()
+    ref = np.linalg.cholesky(A)
+    rank1 = probes.rank1_cholesky_reference(torch.as_tensor(A)).numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(L - ref).max() <= 1e-12 * scale
+    assert np.abs(L - rank1).max() <= 1e-12 * scale
+    assert (np.triu(L, 1) == 0).all()
+
+
+def test_blocked_cholesky_mirror_reads_the_lower_triangle():
+    """Only the lower triangle is read, as the kernel reads it: garbage
+    above the diagonal changes nothing; a non-positive pivot gives NaN in
+    its matrix only."""
+    A = torch.as_tensor(spd(np.random.default_rng(5), 3, 70))
+    junk = A + torch.triu(torch.full_like(A, 7.0), 1)
+    assert torch.equal(probes.blocked_cholesky_mirror(junk),
+                       probes.blocked_cholesky_mirror(A))
+    A[1, 40, 40] = -1.0
+    L = probes.blocked_cholesky_mirror(A)
+    assert torch.isnan(L[1]).any()
+    assert torch.isfinite(L[0]).all() and torch.isfinite(L[2]).all()
+
+
+def test_blocked_cholesky_mirror_matches_the_pallas_body(batch, pallas_out):
+    L = pallas_out["_chol_kernel"]
+    Lm = probes.blocked_cholesky_mirror(torch.as_tensor(batch)).numpy()
+    assert Lm.dtype == np.float32
+    assert np.abs(Lm - L).max() <= 1e-5 * np.abs(L).max()
+    assert (np.triu(Lm, 1) == 0).all()
+
+
+def test_traversal_floor_fma_reference_is_the_pallas_body(batch, pallas_out):
+    """XLA's CPU contracts the Pallas body into one FMA a step: the FMA
+    recurrence gives its bits, and lies within N ulps of the unfused plain
+    version (one tie a step at most, the first step exact)."""
+    A = torch.as_tensor(batch)
+    F = probes.traversal_floor_fma_reference(A).numpy()
+    assert F.dtype == np.float32
+    assert np.array_equal(F, pallas_out["_floor_kernel"])
+    assert _ulps(F, pallas_out["_floor_kernel"]).max() <= N
+    plain = probes.traversal_floor_reference(A).numpy()
+    assert _ulps(F, plain).max() <= N
+
+
+def test_fma_step_rounds_once():
+    """p + c with p = 1 + 2^-24 (a float32 tie) and c tiny: a float64 sum
+    rounds c away and the float32 rounding then goes to even (1.0); the
+    one rounding of the exact sum goes up, as an FMA does.  On random
+    float32 products and addends the step equals the exact sum rounded
+    once (``fractions``)."""
+    from fractions import Fraction
+
+    tie = torch.tensor([1.0 + 2.0 ** -24, -(1.0 + 2.0 ** -24)],
+                       dtype=torch.float64)
+    got = probes._fma_to_f32(tie, 2.0 ** -80)
+    assert got.tolist() == [1.0 + 2.0 ** -23, -1.0]
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=2000).astype(np.float32)
+    p = torch.as_tensor(x).double() * probes.FLOOR_SCALE
+    for k in (0, 1, 77, 127):
+        c = float(np.float32(k) * probes.FLOOR_STEP)
+        got = probes._fma_to_f32(p, c).numpy()
+        for xi, gi in zip(x[:200], got[:200]):
+            exact = Fraction(float(xi)) * Fraction(probes.FLOOR_SCALE) \
+                + Fraction(c)
+            lo = np.float32(float(exact))   # a candidate; check its neighbours
+            best = min((np.nextafter(lo, np.float32(-np.inf)), lo,
+                        np.nextafter(lo, np.float32(np.inf))),
+                       key=lambda f: (abs(Fraction(float(f)) - exact),
+                                      int(np.float32(f).view(np.int32)) & 1))
+            assert gi == best
+
+
+@pytest.mark.parametrize("name,B,N,want", [
+    ("rank1_cholesky", 4096, 128,
+     {"path": "blocked", "capacity": 128, "threads": 192,
+      "matrices_per_cta": 1, "shared_bytes": (10 * 32 * 36 + 128) * 4,
+      "ctas": 4096}),
+    ("rank1_cholesky", 37, 100,
+     {"path": "blocked", "capacity": 128, "threads": 192,
+      "matrices_per_cta": 1, "shared_bytes": (10 * 32 * 36 + 128) * 4,
+      "ctas": 37}),
+    ("rank1_cholesky", 37, 33,
+     {"path": "blocked", "capacity": 64, "threads": 192,
+      "matrices_per_cta": 1, "shared_bytes": (3 * 32 * 36 + 128) * 4,
+      "ctas": 37}),
+    ("rank1_cholesky", 1024, 32,
+     {"path": "warp", "capacity": 32, "threads": 128,
+      "matrices_per_cta": 4, "shared_bytes": 0, "ctas": 256}),
+    ("rank1_cholesky", 37, 5,
+     {"path": "warp", "capacity": 8, "threads": 128,
+      "matrices_per_cta": 16, "shared_bytes": 0, "ctas": 3}),
+    ("traversal_floor", 4096, 128,
+     {"path": "flat", "capacity": 32, "threads": 256,
+      "matrices_per_cta": 0, "shared_bytes": 0, "ctas": 8192}),
+    ("traversal_floor", 37, 5,
+     {"path": "flat", "capacity": 32, "threads": 256,
+      "matrices_per_cta": 0, "shared_bytes": 0, "ctas": 1})])
+def test_launch_geometry(name, B, N, want):
+    """The blocked path's shared memory at N = 128: the 10 lower 32 x 32
+    tiles, rows 9 granules apart (an odd count: eight consecutive rows in
+    eight bank groups), 46.6 KB with the pivots' and column buffers, four
+    CTAs an SM; a ragged N takes the next panel."""
+    assert probes.launch_geometry(name, B, N) == want
+    with pytest.raises(ValueError):
+        probes.launch_geometry(name, B, 129)
+
