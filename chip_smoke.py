@@ -64,6 +64,17 @@ Phases, each printing one JSON line with its own seconds:
    bounds (``profile_kernels.probe_bound``).  Then
    ``validate_large_n`` (BASELINE config 5) at LARGE_N_SIZES, d = 6, 64
    queries, whose every row, N = 2048 included, must pass;
+3d. entry: the port's entry points (``scamlgp_tpu_torch.entry``), with
+   every launch count set to 0 just before: ``entry()``'s forward step
+   (the flagship model's MAP objective and posterior mean and variance)
+   on the card in float32 against the same step on the CPU in float64,
+   each output within ENTRY_RTOL; ``dryrun_multichip`` over every card
+   (the task-sharded meta-fit, target caches and target fit, and a
+   campaign on a (study, task) mesh); and the headline profile
+   (``profile_headline``) at HEADLINE_SHAPE, HEADLINE_ROUNDS rounds, its
+   JSON line printed, whose four sweep stages (HEADLINE_SELECT_STAGES)
+   must each launch ``select`` once a round and once to warm up, and the
+   other three no kernel;
 4. slices, each through ``run_campaign`` in float32 with
    ``mll_method="sweep"`` and the CampaignConfig defaults, with the launch
    counts of every kernel set to 0 just before and read just after:
@@ -249,7 +260,9 @@ from scamlgp_tpu_torch import (
     bench_traversal_floor,
     convert,
     distributed_worker,
+    entry,
     meta_fit_split,
+    profile_headline,
     validate_large_n,
 )
 from scamlgp_tpu_torch.benchmarking.benchmarks import (
@@ -457,6 +470,17 @@ TOL_PROBE_CHOL = 1e-5
 TOL_PROBE_LIBRARY = 1e-4
 #: the floor against its FMA recurrence, in ulps (expected: bit for bit)
 TOL_PROBE_FLOOR_ULPS = 1
+
+# the entry phase: entry()'s forward step on the card in float32 against
+# the same step on the CPU in float64, each output relative (the float32
+# jitter, 1e-6 against 1e-10, moves the variance by about 1e-3); the
+# headline profile at HEADLINE_SHAPE (B, N, D), HEADLINE_ROUNDS rounds
+ENTRY_RTOL = 1e-2
+HEADLINE_SHAPE = (4096, 128, 6)
+HEADLINE_ROUNDS = 5
+#: the headline stages that launch select once a round
+HEADLINE_SELECT_STAGES = ("inverse_fwd", "mll_vg_sweep", "mll_fwd_sweep",
+                          "mll_via_inv_preA")
 
 # kernel vs plain: inverse to this share of max|A^-1|, logdet relative
 TOL_INV = {torch.float32: 1e-4, torch.float64: 1e-11}
@@ -1879,6 +1903,46 @@ def posterior_times():
     return out
 
 
+def phase_entry(device="cuda"):
+    """The port's entry points: ``entry()``'s forward step against the same
+    step on the CPU in float64, ``dryrun_multichip`` over every card, and
+    the headline profile, whose four sweep stages must each launch
+    ``select`` once a round (and once to warm up) and the other three
+    never.  Returns the launches of every kernel in the phase."""
+    t0 = time.perf_counter()
+    reset_launches()
+    fn, args = entry.entry(device)
+    outs = [o.detach().to("cpu", torch.float64) for o in fn(*args)]
+    fn64, args64 = entry.entry("cpu", torch.float64)
+    rel = [float(torch.max(torch.abs(a - b) / torch.clamp_min(b.abs(),
+                                                              1e-12)))
+           for a, b in zip(outs, fn64(*args64))]
+    check(all(bool(torch.isfinite(o).all()) for o in outs)
+          and max(rel) <= ENTRY_RTOL,
+          f"entry: the forward step on {device} is {rel} from float64")
+    t1 = time.perf_counter()
+    n = torch.cuda.device_count() if device == "cuda" else 1
+    dry = entry.dryrun_multichip(n, device)
+    t2 = time.perf_counter()
+    B, N, D = HEADLINE_SHAPE
+    head = profile_headline.run(B, N, D, HEADLINE_ROUNDS, device)
+    print(json.dumps(head), flush=True)
+    for stage in profile_headline.STAGES:
+        want = ({"sweep_inverse": HEADLINE_ROUNDS + 1}
+                if stage in HEADLINE_SELECT_STAGES else {})
+        check(head["launches"][stage] == want,
+              f"profile_headline {stage} launched {head['launches'][stage]}"
+              f", not {want}")
+    launches = launches_now()
+    t3 = time.perf_counter()
+    emit("entry", t3 - t0, entry_max_rel=rel, entry_s=t1 - t0,
+         dryrun_s=t2 - t1, headline_s=t3 - t2,
+         dryrun={k: v for k, v in dry.items() if k != "y_clean"},
+         headline_evals_per_s={k: head[k] for k in profile_headline.STAGES},
+         launches=launches)
+    return launches
+
+
 def phase_bench():
     """The kernel N-scaling bench at BENCH_SHAPE with every variant; every
     entry must be a number, and the pair and blocked variants must have
@@ -2214,6 +2278,7 @@ def main():
     others.update(probe_others)
     by_slice = {key: phase_slice(key) for key in SLICES}
     by_slice["probes"] = probe_launches
+    by_slice["entry"] = phase_entry()
     by_slice["device_loop"] = phase_device_loop()
     by_slice["campaign_resume"] = phase_campaign_resume()
     by_slice["posterior"] = phase_posterior()

@@ -506,3 +506,35 @@ def test_probes_phase_on_the_cpu(monkeypatch, capsys):
         assert 0 <= row["floor_max_ulps_plain"] <= row["n"]
     assert head["rank1_cholesky"]["library_ms"] > 0
     assert head["traversal_floor"]["library_ms"] is None
+
+
+def test_entry_phase_on_the_cpu(monkeypatch, capsys):
+    """The entry phase on the CPU at a small headline shape, the plain
+    sweep standing in for the kernel through a counting wrapper: the
+    float32 step within ENTRY_RTOL of float64, the dry run on one slot,
+    and ``select`` launched once a round (and once to warm up) in each of
+    the four sweep stages of the headline profile, never in the others."""
+    plain = sweep.sweep_inverse_reference
+
+    def counted(A, variant="select"):
+        counted.launches[variant] += 1
+        return plain(A, variant)
+
+    counted.launches = sweep.sweep_inverse.launches
+    monkeypatch.setattr(sweep, "sweep_inverse", counted)
+    monkeypatch.setattr(chip_smoke, "HEADLINE_SHAPE", (4, 8, 2))
+    monkeypatch.setattr(chip_smoke, "HEADLINE_ROUNDS", 2)
+    launches = chip_smoke.phase_entry("cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    head, line = json.loads(lines[-2]), json.loads(lines[-1])
+    assert line["phase"] == "entry"
+    assert (head["B"], head["N"], head["D"], head["rounds"]) == (4, 8, 2, 2)
+    assert head["launches"]["inverse_fwd"] == {"sweep_inverse": 3}
+    assert head["launches"]["mll_vg_chol"] == {}
+    assert launches["sweep_inverse"] == 4 * 3
+    assert sum(launches.values()) == 4 * 3
+    assert line["launches"] == launches
+    assert len(line["entry_max_rel"]) == 3
+    assert 0 < max(line["entry_max_rel"]) <= chip_smoke.ENTRY_RTOL
+    assert line["dryrun"]["slots"] == ["cpu"]
+    assert line["dryrun"]["mesh"] == [1, 1]

@@ -70,7 +70,10 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
     ``bench_multihost.py``, and the loop-shape probes and the large-N
     checks (the ports of ``bench_chol_fused_probe.py``,
     ``bench_vpu_ceiling.py``, ``validate_large_n.py`` and
-    ``validate_large_n_fit.py``) are among the modules that it imports."""
+    ``validate_large_n_fit.py``), and the last entry points (the ports of
+    ``bench_profile_headline.py``, ``bench_sequential_driver.py``,
+    ``bench_tabular_campaign.py``, the root ``__graft_entry__.py`` and the
+    two figure scripts) are among the modules that it imports."""
     import pkgutil
 
     import scamlgp_tpu_torch
@@ -116,7 +119,13 @@ def test_the_walk_reaches_the_bench_and_the_profiling_hooks():
             "scamlgp_tpu_torch.bench_chol_fused_probe",
             "scamlgp_tpu_torch.bench_traversal_floor",
             "scamlgp_tpu_torch.validate_large_n",
-            "scamlgp_tpu_torch.validate_large_n_fit"} <= names
+            "scamlgp_tpu_torch.validate_large_n_fit",
+            "scamlgp_tpu_torch.profile_headline",
+            "scamlgp_tpu_torch.bench_sequential_driver",
+            "scamlgp_tpu_torch.bench_tabular_campaign",
+            "scamlgp_tpu_torch.entry",
+            "scamlgp_tpu_torch.plot_campaign_figures",
+            "scamlgp_tpu_torch.plot_ablations_combined"} <= names
     configurations = {n.rsplit(".", 1)[1] for n in names if n.startswith(
         "scamlgp_tpu_torch.benchmarking.configurations.")}
     assert len(configurations - {"_shared", "styles"}) == 17
